@@ -1,0 +1,70 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each source under ``ops/csrc/`` has a plain C interface and is compiled
+on first use into a shared library for ``sm_90a``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<hash>.so <src>.cu
+
+The library lands in ``build/kernels/`` at the root of the checkout
+(listed in ``.gitignore``), named by a hash of the source and the flags,
+so an edited source is rebuilt and an unchanged one is reused. The
+compiler's report (registers, shared memory, spills) is kept beside it
+as ``<lib>.log``. Nothing is compiled or loaded at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+BUILD_DIR = os.path.join(REPO_ROOT, "build", "kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _library_path(name: str) -> str:
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its library exists; return its path."""
+    out = _library_path(name)
+    if os.path.isfile(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    with open(out + ".log", "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = _loaded[name] = ctypes.CDLL(build(name))
+    return lib
