@@ -1,5 +1,5 @@
-"""Shared building blocks: Dense, MLP, LayerNorm, padding bias and
-multi-head attention.
+"""Shared building blocks: Dense, MLP, LayerNorm, padding bias, dropout
+and multi-head attention.
 
 Counterpart of ``layoutdetr_tpu/models/layers.py``. Conventions kept:
 
@@ -7,7 +7,10 @@ Counterpart of ``layoutdetr_tpu/models/layers.py``. Conventions kept:
 - parameters in fp32, matmuls in the module's ``dtype`` (weights are
   cast at use, as the JAX modules do);
 - LayerNorm and softmax in fp32 whatever the activation dtype;
-- masks are additive float biases.
+- masks are additive float biases;
+- dropout follows JAX's ``deterministic`` flag; its masks come from an
+  explicit ``torch.Generator`` on the tensor's device, never from the
+  global RNG state.
 
 Parameter names and layouts are torch's own (``weight`` [out, in],
 ``in_proj_weight`` [3D, D], ``out_proj``), so a state dict of the port
@@ -17,6 +20,7 @@ uses the original networks_detr names.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -62,6 +66,20 @@ class LayerNorm(nn.LayerNorm):
                             self.eps).to(x.dtype)
 
 
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (flax ``nn.Dropout``): keep each entry with
+    probability 1 - rate and scale it by 1 / (1 - rate). The identity when
+    ``deterministic`` or ``rate == 0``; otherwise the keep mask is drawn
+    from ``generator``."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout with deterministic=False needs a torch.Generator")
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return torch.where(keep.bool(), x / (1.0 - rate), 0.0)
+
+
 def padding_bias(key_padding_mask: torch.Tensor) -> torch.Tensor:
     """[B, S] bool (True = padded) -> [B, 1, 1, S] fp32 bias, -inf on padding."""
     return torch.zeros(key_padding_mask.shape, device=key_padding_mask.device).masked_fill(
@@ -74,13 +92,16 @@ class MultiHeadAttention(nn.Module):
     Matches nn.MultiheadAttention math: one ``in_proj_weight`` [3D, D]
     whose thirds project q, k and v, scaled dot product with an additive
     bias, softmax in fp32, then ``out_proj``. A row whose keys are all
-    masked gives NaN probabilities; they are set to zero, as in JAX.
+    masked gives NaN probabilities; they are set to zero, as in JAX, and
+    then dropped out at rate ``dropout`` when not deterministic.
     """
 
-    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         assert d_model % num_heads == 0
         self.num_heads = num_heads
+        self.dropout = dropout
         self.compute_dtype = dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
@@ -89,7 +110,7 @@ class MultiHeadAttention(nn.Module):
         nn.init.xavier_uniform_(self.out_proj.weight)
         nn.init.zeros_(self.out_proj.bias)
 
-    def forward(self, q, k=None, v=None, *, attn_bias=None):
+    def forward(self, q, k=None, v=None, *, attn_bias=None, deterministic=True, generator=None):
         """q: [B, Q, D]; k, v: [B, K, D] (None = self-attention).
         attn_bias: additive float bias broadcastable to [B, H, Q, K]."""
         k = q if k is None else k
@@ -116,6 +137,7 @@ class MultiHeadAttention(nn.Module):
         scores = scores.float()
         if attn_bias is not None:
             scores = scores + attn_bias
-        probs = torch.nan_to_num(torch.softmax(scores, dim=-1)).to(dt)
+        probs = torch.nan_to_num(torch.softmax(scores, dim=-1))
+        probs = dropout(probs, self.dropout, deterministic, generator).to(dt)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, vh).reshape(b, nq, d_model)
         return self.out_proj(out)

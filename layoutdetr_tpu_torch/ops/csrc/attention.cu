@@ -4,8 +4,9 @@
 // (pl.pallas_call in fused_attention). Per (sequence, head) it computes
 //     o = softmax(q k^T * scale + bias[key]) v
 // with logits and softmax in fp32 and the output in q's dtype, forward
-// only and without dropout. The wrapper and the plain PyTorch version are
-// in layoutdetr_tpu_torch/ops/attention.py.
+// only, and optionally with dropout on the probabilities (the training
+// form of the hoisted text pass). The wrapper and the plain PyTorch
+// version are in layoutdetr_tpu_torch/ops/attention.py.
 //
 // Design. The Pallas kernel holds a whole S x S cell of one (batch, head)
 // in VMEM. At S=256 in fp32 that cell alone is 256 KB, more than the
@@ -39,6 +40,23 @@
 //   Probabilities go from the S accumulators straight into bf16 A
 //   fragments of P V, rounded to bf16 as the plain version rounds p to
 //   v's dtype. ~77 KB of shared memory: 2 blocks/SM.
+//
+// Dropout. The TPU kernel draws its keep mask from the TPU's own PRNG,
+// seeded seed + b*H + h; those bits cannot be had here. This kernel keeps
+// probability p[b, h, q, k] when the Philox4x32-10 word for it is >= the
+// threshold rate * 2^32 (as the TPU kernel compares its bits), with
+//     key     = (seed, b*H + h)
+//     counter = (k / 4, q, 0, 0), word k % 4,
+// so one 128-bit draw covers 4 consecutive keys and the bits depend on
+// neither the tiling nor the dtype. ops/attention.py computes the same
+// bits in plain PyTorch (philox4x32), so the card and its plain version
+// drop the same entries. The row sum of the online softmax takes every
+// key, dropped ones included; only the numerator of p v is masked and
+// scaled by 1 / (1 - rate), as the TPU kernel masks p after normalizing.
+// fp32: after a chunk's probabilities are in shared memory, each thread
+// masks 4 groups of 4 keys there. bf16: the two threads of a quad that
+// hold one group's keys (rows g and g + 8) each draw one of the two rows'
+// words and swap the halves the other needs with one shuffle.
 //
 // Bound on this card (H100 SXM): at B*9 = 144 sequences, 4 heads, T=256,
 // D=192 one launch is 144 * 4 * 2 * (2 * 256^2 * 192) ~ 29 GFLOP and
@@ -74,7 +92,30 @@ struct AttnArgs {
   int heads;
   int seq;
   float scale;
+  int dropout;          // 0: deterministic
+  unsigned seed;        // Philox key word 0
+  unsigned threshold;   // keep when bits >= threshold (rate * 2^32)
+  float inv_keep;       // 1 / (1 - rate)
 };
+
+// Philox4x32 with 10 rounds (Salmon et al., Random123).
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k.x += 0x9E3779B9u;
+      k.y += 0xBB67AE85u;
+    }
+    const unsigned lo0 = 0xD2511F53u * c.x, hi0 = __umulhi(0xD2511F53u, c.x);
+    const unsigned lo1 = 0xCD9E8D57u * c.z, hi1 = __umulhi(0xCD9E8D57u, c.z);
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
+__device__ __forceinline__ float keep_or_drop(unsigned bits, float p, const AttnArgs& a) {
+  return bits >= a.threshold ? p * a.inv_keep : 0.f;
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -235,6 +276,26 @@ __global__ void __launch_bounds__(kF32Threads) attention_fwd_f32_kernel(AttnArgs
         for (int e = 0; e < 4; ++e) acc[i][c][e] *= alpha;
     }
     __syncthreads();
+
+    if (a.dropout) {  // mask the chunk's probabilities, 4 keys per draw
+      constexpr int kGroups = kBK / 4;
+#pragma unroll
+      for (int i = 0; i < kBQ * kGroups / kF32Threads; ++i) {
+        const int gi = threadIdx.x + i * kF32Threads;
+        const int r = gi / kGroups;
+        const int cg = gi - r * kGroups;
+        const uint4 bits = philox4x32_10(make_uint4((k0 >> 2) + cg, q0 + r, 0u, 0u),
+                                         make_uint2(a.seed, blockIdx.x));
+        float4* pr = reinterpret_cast<float4*>(Ps + r * ldp + 4 * cg);
+        float4 p = *pr;
+        p.x = keep_or_drop(bits.x, p.x, a);
+        p.y = keep_or_drop(bits.y, p.y, a);
+        p.z = keep_or_drop(bits.z, p.z, a);
+        p.w = keep_or_drop(bits.w, p.w, a);
+        *pr = p;
+      }
+      __syncthreads();
+    }
 
     // acc += p v over the chunk
 #pragma unroll 2
@@ -412,6 +473,28 @@ __global__ void __launch_bounds__(kBf16Threads, 2) attention_fwd_bf16_kernel(Att
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
 
+    if (a.dropout) {
+      // Keys 8j + 2t + {0, 1} of rows g and g + 8 lie in key group
+      // 2j + t/2 at words 2(t&1), 2(t&1)+1. The even thread of a pair draws
+      // row g, the odd one row g + 8; each passes the pair the other needs.
+      const bool odd = t & 1;
+      const int row = q0 + warp * 16 + g + (odd ? 8 : 0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint4 bits = philox4x32_10(
+            make_uint4((k0 >> 2) + 2 * j + (t >> 1), row, 0u, 0u), make_uint2(a.seed, blockIdx.x));
+        const unsigned send0 = odd ? bits.x : bits.z, send1 = odd ? bits.y : bits.w;
+        const unsigned recv0 = __shfl_xor_sync(0xffffffffu, send0, 1);
+        const unsigned recv1 = __shfl_xor_sync(0xffffffffu, send1, 1);
+        const unsigned own0 = odd ? bits.z : bits.x, own1 = odd ? bits.w : bits.y;
+        // row g: e = 0, 1; row g + 8: e = 2, 3
+        s[j][0] = keep_or_drop(odd ? recv0 : own0, s[j][0], a);
+        s[j][1] = keep_or_drop(odd ? recv1 : own1, s[j][1], a);
+        s[j][2] = keep_or_drop(odd ? own0 : recv0, s[j][2], a);
+        s[j][3] = keep_or_drop(odd ? own1 : recv1, s[j][3], a);
+      }
+    }
+
     // acc += p v: 4 k-steps of 16 keys
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -477,13 +560,17 @@ bool rows_aligned(const AttnArgs& a, long long vec) {
 }  // namespace
 
 // strides: 12 int64 in elements, (batch, head, seq) for q, k, v, o.
-// dtype: 0 = fp32, 1 = bf16. Returns cudaGetLastError() after the launch,
-// or an error code for arguments the kernels do not take.
+// dtype: 0 = fp32, 1 = bf16. dropout_rate 0 runs the deterministic form;
+// otherwise seed keys the Philox draws and threshold is rate * 2^32.
+// Returns cudaGetLastError() after the launch, or an error code for
+// arguments the kernels do not take.
 extern "C" int layoutdetr_attention_forward(const void* q, const void* k, const void* v,
                                             const float* bias, void* o, const long long* strides,
                                             int batch, int heads, int seq, int head_dim,
-                                            float scale, int dtype, void* stream) {
-  if (batch <= 0 || heads <= 0 || seq <= 0 || head_dim != kHeadDim || (dtype != 0 && dtype != 1))
+                                            float scale, float dropout_rate, unsigned seed,
+                                            unsigned threshold, int dtype, void* stream) {
+  if (batch <= 0 || heads <= 0 || seq <= 0 || head_dim != kHeadDim || (dtype != 0 && dtype != 1) ||
+      !(dropout_rate >= 0.f && dropout_rate < 1.f))
     return (int)cudaErrorInvalidValue;
   AttnArgs a;
   a.q = q;
@@ -498,6 +585,10 @@ extern "C" int layoutdetr_attention_forward(const void* q, const void* k, const 
   a.heads = heads;
   a.seq = seq;
   a.scale = scale;
+  a.dropout = dropout_rate > 0.f;
+  a.seed = seed;
+  a.threshold = threshold;
+  a.inv_keep = 1.f / (1.f - dropout_rate);
   if (!rows_aligned(a, dtype == 0 ? 4 : 8)) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {

@@ -33,6 +33,19 @@ TINY_KW = dict(
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one thread for the length of a port test module, restored
+    after it. The suite runs several test processes at once on a few cores;
+    one torch thread each keeps the host from being oversubscribed (the JAX
+    tests' Pallas interpret mode stalls on an overloaded host). Each port
+    test module imports this fixture, which makes it apply there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def to_numpy_tree(tree):
     """JAX variables/params -> nested dicts of numpy arrays."""
     return jax.tree.map(np.asarray, jax.device_get(dict(tree)))
@@ -52,6 +65,50 @@ def randomize_tree(tree, seed=0, scale=0.1):
         return (node + noise).astype(np.float32)
 
     return walk(tree)
+
+
+def _random_leaf(path, shape, rng):
+    """A plausible random value for a JAX param leaf, by its name: unit
+    LayerNorm scales and BN statistics, fan-in scaled kernels, N(0, 1)
+    StyleGAN weights (x 100 in the lr-0.01 mapping net), BERT's 0.02
+    embeddings, and 0.1-sized biases (about 1 for the StyleGAN affines)."""
+    name, parent = path[-1], (path[-2] if len(path) > 1 else "")
+    n = rng.normal(size=shape)
+    if parent.startswith("bn") or parent == "downsample_bn":
+        if name == "weight":
+            return 1 + 0.1 * n
+        return np.abs(1 + 0.1 * n) + 0.5 if name == "running_var" else 0.1 * n
+    if name == "scale":
+        return 1 + 0.1 * n
+    if name in ("kernel", "in_proj_kernel", "out_kernel"):
+        return n / np.sqrt(np.prod(shape[:-1]))
+    if name == "weight":
+        return n * (100.0 if "mapping" in path else 1.0)
+    if name == "pos_token":
+        return rng.uniform(size=shape)
+    if name in ("word_embeddings", "position_embeddings"):
+        return 0.02 * n
+    if name in ("const", "token", "emb_label", "emb_label_uncond", "enc_text_len"):
+        return n
+    if name == "bias" and "affine" in path:
+        return 1 + 0.1 * n
+    return 0.1 * n
+
+
+def random_params(module, *args, seed=0, **kwargs):
+    """Seeded numpy params for a flax module, shaped by ``jax.eval_shape``
+    of its init (no init compile): nested dicts of float32 arrays."""
+    key = jax.random.PRNGKey(0)
+    shapes = jax.eval_shape(
+        lambda: module.init({"params": key, "dropout": key, "noise": key}, *args, **kwargs))
+    rng = np.random.default_rng(seed)
+
+    def walk(node, path):
+        if isinstance(node, dict) or hasattr(node, "items"):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return np.asarray(_random_leaf(path, node.shape, rng), np.float32)
+
+    return walk(shapes["params"], ())
 
 
 def load_port(module, state_dict):
@@ -128,6 +185,15 @@ def test_port_imports_with_jax_blocked():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 15
+
+
+def test_port_test_modules_run_torch_on_one_thread():
+    """Every port test module imports the fixture that sets one torch thread."""
+    assert torch.get_num_threads() == 1
+    for name in sorted(os.listdir(os.path.dirname(__file__))):
+        if name.startswith("test_torch_") and name.endswith(".py") and name != "test_torch_common.py":
+            with open(os.path.join(os.path.dirname(__file__), name)) as f:
+                assert "import one_torch_thread" in f.read(), name
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -31,10 +31,10 @@ from layoutdetr_tpu_torch.utils.convert import generator_state_dict_from_jax
 from test_torch_common import (
     assert_max_abs,
     load_port,
-    randomize_tree,
+    random_params,
     tiny_configs,
-    to_numpy_tree,
 )
+from test_torch_common import one_torch_thread  # noqa: F401 (module-scoped autouse fixture)
 
 TOL = 1e-5
 
@@ -61,8 +61,7 @@ def _batch(cfg, b=2, seed=0):
 
 
 def _init(jcfg, batch):
-    params = JaxGenerator(jcfg).init(jax.random.PRNGKey(0), **batch)["params"]
-    return randomize_tree(to_numpy_tree(params), scale=0.02)
+    return random_params(JaxGenerator(jcfg), **batch, reconst=True)
 
 
 def _torch(batch):
@@ -88,6 +87,24 @@ def test_generator_matches_jax(slice_case, grad):
     assert_max_abs(got, want, TOL, "bbox_fake")
 
 
+def test_generator_reconst_matches_jax(slice_case):
+    """The training forward: bbox_fake, loss_z, logit_cls, loss_lm and
+    loss_text_len (the text decoder in mode='text'), deterministic.
+    1e-5 max-abs, relative above 1."""
+    cfg, batch, params, _ = slice_case
+    jcfg, _ = tiny_configs()
+    want = [np.asarray(a) for a in JaxGenerator(jcfg).apply({"params": params}, **batch,
+                                                            reconst=True)]
+    port = load_port(Generator(cfg), generator_state_dict_from_jax(params, cfg))
+    with torch.no_grad():
+        got = port(**_torch(batch), reconst=True)
+    assert len(got) == 5
+    for name, g, w in zip(("bbox_fake", "loss_z", "logit_cls", "loss_lm", "loss_text_len"),
+                          got, want):
+        assert tuple(g.shape) == w.shape, name
+        assert_max_abs(g, w, TOL * max(1.0, float(np.abs(w).max())), name)
+
+
 def test_generator_hoisted_text_feat(slice_case):
     cfg, batch, params, want = slice_case
     port = load_port(Generator(cfg), generator_state_dict_from_jax(params, cfg))
@@ -111,9 +128,21 @@ def test_state_dict_keeps_reference_names(slice_case):
         "fc_in": torch_convert._mlp(sd, "fc_in"),
         "bbox_embed": torch_convert._mlp(sd, "bbox_embed"),
         "input_proj": torch_convert._conv1x1_as_dense(sd, "input_proj"),
+        "text_decoder": torch_convert.convert_bert_lm_head(
+            sd, cfg.bert_num_decoder_layers, cfg.vocab_size, prefix="text_decoder."),
+        **{k: torch_convert._lin(sd, k) for k in ("fc_z_rec", "fc_out_cls", "fc_text_len_rec")},
     }
     for key, tree in back.items():
+        # the port's crossattention blocks (filled; JAX creates none in mode='text')
+        # come back too: compare the rest
+        tree = _drop_crossattention(tree)
         jax.tree.map(np.testing.assert_array_equal, tree, params[key])
+
+
+def _drop_crossattention(tree):
+    if not isinstance(tree, dict):
+        return tree
+    return {k: _drop_crossattention(v) for k, v in tree.items() if k != "crossattention"}
 
 
 def test_converter_raises_on_missing_and_extra_leaves(slice_case):
@@ -126,13 +155,21 @@ def test_converter_raises_on_missing_and_extra_leaves(slice_case):
     extra["bbox_embed"]["layers_3"] = {"kernel": np.zeros((4, 4), np.float32)}
     with pytest.raises(KeyError, match="layers_3"):
         generator_state_dict_from_jax(extra, cfg)
-    # subtrees of the training slice are skipped, with or without the
-    # top-level "params" key
-    skipped = jax.tree.map(lambda x: x, params)
-    skipped["fc_z_rec"] = {"kernel": np.zeros((16, 36), np.float32)}
-    skipped["text_encoder"]["bert"]["layer_0"]["crossattention"] = {"w": np.zeros(2, np.float32)}
-    sd = generator_state_dict_from_jax({"params": skipped}, cfg)
+    # a crossattention block the tree carries (one converted from a
+    # reference checkpoint) is taken, with or without the top-level
+    # "params" key; one it lacks is filled
+    cross = jax.tree.map(lambda x: x, params)
+    d = cfg.bert_f_dim
+    block = {"self": {n: {"kernel": np.full((d, d), 0.5, np.float32), "bias": np.zeros(d, np.float32)}
+                      for n in ("query", "key", "value")},
+             "output_dense": {"kernel": np.zeros((d, d), np.float32), "bias": np.zeros(d, np.float32)},
+             "output_layernorm": {"scale": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)}}
+    cross["text_encoder"]["bert"]["layer_0"]["crossattention"] = block
+    sd = generator_state_dict_from_jax({"params": cross}, cfg)
     assert set(sd) == set(Generator(cfg).state_dict())
+    assert (sd["text_encoder.encoder.layer.0.crossattention.self.key.weight"] == 0.5).all()
+    filled = sd["text_encoder.encoder.layer.1.crossattention.self.key.weight"]
+    assert 0.01 < float(filled.std()) < 0.03
 
 
 # ---------------------------------------------------------------------------

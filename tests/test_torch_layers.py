@@ -19,6 +19,7 @@ from layoutdetr_tpu_torch.models.stylegan2 import normalize_2nd_moment
 from layoutdetr_tpu_torch.utils.convert import JaxParams
 
 from test_torch_common import assert_max_abs, load_port, randomize_tree, to_numpy_tree
+from test_torch_common import one_torch_thread  # noqa: F401 (module-scoped autouse fixture)
 
 TOL = 1e-5
 

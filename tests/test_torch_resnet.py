@@ -13,6 +13,7 @@ from layoutdetr_tpu_torch.models.resnet import ResNet50
 from layoutdetr_tpu_torch.utils.convert import JaxParams
 
 from test_torch_common import load_port, max_abs, randomize_tree, to_numpy_tree
+from test_torch_common import one_torch_thread  # noqa: F401 (module-scoped autouse fixture)
 
 
 def test_resnet50_matches_jax():
