@@ -3,6 +3,12 @@
 kernel on them against its plain version.
 
     python3 chip_smoke.py [--seed 0] [--batch 16]
+    python3 chip_smoke.py --bias-act-only
+
+The second form runs phases 1-3 for bias_act alone, adds where a call's
+host time goes (two ways to read the current stream, the host us of a
+call beside torch.add / torch.sum / empty_like), and prints one JSON line
+and no ok line.
 
 Phases (any failure ends the run with a non-zero exit and no result):
 
@@ -16,7 +22,13 @@ Phases (any failure ends the run with a non-zero exit and no result):
      padding down to length 2; deterministic, and with dropout 0.1 against
      the plain version with the same Philox keep mask;
    - bias_act forward and backward at every distinct shape of the train
-     step's 48 calls (D's bg_decoder at batch 16), fp32 and bf16;
+     step's 48 calls (D's bg_decoder at batch 16), fp32 and bf16 (b in
+     x's dtype, as the models pass it; a bf16 call also with b in fp32,
+     which must give the same bits), db bit-equal in two runs, each
+     call's us beside torch.add / torch.sum; the autograd round trip
+     through ``bias_act`` against eager ``x + b`` at [16, 512] linear and
+     the largest lrelu call; one kernel launch a backward call
+     (profiled);
 4. model: the full-width Generator (GeneratorConfig() defaults) from
    seeded random weights, with the kernel vs with plain attention on the
    card in fp32 and in bf16, the bf16 model vs the fp32 one, and the
@@ -247,7 +259,10 @@ def plain_bias_act(bias_act_mod):
 def bias_act_phase(torch, bias_act_mod, calls: list, seed: int) -> list:
     """Forward and backward kernels vs the plain versions at each distinct
     call of one step's bg_decoder forward; one record per (call, dtype)
-    with the number of times a step makes that call."""
+    with the number of times a step makes that call. b is in x's dtype, as
+    the models pass it (``self.bias.to(x.dtype)``). db must be bit-equal
+    in two runs, and a bf16 call must give the same bits with b widened
+    to fp32 (the kernel then reads the same values)."""
     distinct = {}
     for c in calls:
         distinct[c] = distinct.get(c, 0) + 1
@@ -258,14 +273,25 @@ def bias_act_phase(torch, bias_act_mod, calls: list, seed: int) -> list:
             es = torch.finfo(dtype).bits // 8
             g = torch.Generator(device="cuda").manual_seed(seed)
             x = torch.randn(shape, device="cuda", generator=g).to(dtype)
-            b = torch.randn(shape[dim], device="cuda", generator=g)
+            b = torch.randn(shape[dim], device="cuda", generator=g).to(dtype)
             dy = torch.randn(shape, device="cuda", generator=g).to(dtype)
             args = (dim, act, alpha, gain, clamp)
             y = bias_act_mod.bias_act_forward(x, b, *args)
             dx, db = bias_act_mod.bias_act_backward(dy, x, b, *args)
+            _, db2 = bias_act_mod.bias_act_backward(dy, x, b, *args)
             torch.cuda.synchronize()
-            want_y = bias_act_mod.bias_act_ref(x.float(), b, *args)
-            want_dx, want_db = bias_act_mod.bias_act_ref_backward(dy.float(), x.float(), b, *args)
+            if not torch.equal(db, db2):
+                raise AssertionError(f"bias_act {dtype_name} {shape} {act}: db differs between runs")
+            if dtype != torch.float32:
+                y32 = bias_act_mod.bias_act_forward(x, b.float(), *args)
+                dx32, db32 = bias_act_mod.bias_act_backward(dy, x, b.float(), *args)
+                if not (torch.equal(y, y32) and torch.equal(dx, dx32) and torch.equal(db, db32)):
+                    raise AssertionError(f"bias_act {dtype_name} {shape} {act}: a bf16 b and the "
+                                         f"same b in fp32 differ")
+                del y32, dx32, db32
+            want_y = bias_act_mod.bias_act_ref(x.float(), b.float(), *args)
+            want_dx, want_db = bias_act_mod.bias_act_ref_backward(dy.float(), x.float(), b.float(),
+                                                                  *args)
             tol_y, tol_db = BIAS_ACT_TOL[dtype_name]
             errs = dict(
                 y=(y.float() - want_y).abs().max().item() / max(want_y.abs().max().item(), 1e-30),
@@ -281,7 +307,7 @@ def bias_act_phase(torch, bias_act_mod, calls: list, seed: int) -> list:
             # the eager two-call form a user would write (x + b, then the act
             # with its gain), a labelled extra: for lrelu no single PyTorch call
             # fuses it
-            bview = b.to(dtype).view([-1 if i == dim else 1 for i in range(len(shape))])
+            bview = b.view([-1 if i == dim else 1 for i in range(len(shape))])
             if act == "lrelu":
                 two_call = lambda: torch.nn.functional.leaky_relu(x + bview, alpha) * gain
             else:
@@ -292,8 +318,9 @@ def bias_act_phase(torch, bias_act_mod, calls: list, seed: int) -> list:
             # function: the forward is torch.add(x, b) (b in x's dtype), the
             # backward's db one sum of dy (dx is dy itself). The lrelu calls
             # have no such call.
+            pass_through = act == "linear" and gain == 1.0 and clamp is None
             lib_fwd = lib_bwd = lib_err = None
-            if act == "linear" and gain == 1.0 and clamp is None:
+            if pass_through:
                 others = [i for i in range(len(shape)) if i != dim]
                 lib_err = ((torch.add(x, bview).float() - want_y).abs().max().item()
                            / max(want_y.abs().max().item(), 1e-30))
@@ -301,23 +328,157 @@ def bias_act_phase(torch, bias_act_mod, calls: list, seed: int) -> list:
                     raise AssertionError(f"torch.add vs bias_act_ref {shape}: {lib_err}")
                 lib_fwd = cuda_ms(torch, lambda: torch.add(x, bview), 20)
                 lib_bwd = cuda_ms(torch, lambda: torch.sum(dy, dim=others, dtype=torch.float32), 20)
-            # ~4 operations an element forward (add, act, gain, clamp), ~6 backward
-            fb, fby = bound(4.0 * n, 2.0 * n * es + 4 * shape[dim], "float32")
-            bb, bby = bound(6.0 * n, 3.0 * n * es + 8 * shape[dim], "float32")
-            rec = dict(dtype=dtype_name, shape=list(shape), act=act, gain=gain, per_step=per_step,
-                       rel_err=errs, fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd,
-                       plain_bwd_ms=plain_bwd, eager_two_call_ms=eager_ms, library_fwd_ms=lib_fwd,
-                       library_bwd_ms=lib_bwd, library_rel_err=lib_err, fwd_bound_ms=fb,
-                       fwd_bound_by=fby, bwd_bound_ms=bb, bwd_bound_by=bby)
+            # ~4 operations an element forward (add, act, gain, clamp), ~6
+            # backward. Bytes: x read and y written forward; backward dy read,
+            # x read where act' or the clamp need z, dx written unless it is
+            # dy itself (linear, gain 1, no clamp); b read (x's dtype) and db
+            # written (fp32).
+            need_x = act != "linear" or clamp is not None
+            bwd_bytes = n * es * (1 + need_x + (not pass_through)) + (es + 4) * shape[dim]
+            fb, fby = bound(4.0 * n, 2.0 * n * es + es * shape[dim], "float32")
+            bb, bby = bound(6.0 * n, bwd_bytes, "float32")
+            rec = dict(dtype=dtype_name, shape=list(shape), act=act, gain=gain, clamp=clamp,
+                       per_step=per_step, rel_err=errs, db_bit_equal=True, fwd_ms=fwd_ms,
+                       bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
+                       eager_two_call_ms=eager_ms, library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
+                       library_rel_err=lib_err, fwd_bound_ms=fb, fwd_bound_by=fby,
+                       bwd_bound_ms=bb, bwd_bound_by=bby)
             lib = ("none" if lib_fwd is None else
-                   f"torch.add {lib_fwd:.4f} / torch.sum {lib_bwd:.4f}")
+                   f"torch.add {lib_fwd * 1e3:.1f} us / torch.sum {lib_bwd * 1e3:.1f} us")
             log(f"bias_act {dtype_name} {list(shape)} {act} x{per_step}/step: rel err y "
-                f"{errs['y']:.2e} dx {errs['dx']:.2e} db {errs['db']:.2e}  fwd {fwd_ms:.4f} ms "
-                f"(plain {plain_fwd:.4f}, two-call {eager_ms:.4f}, bound {fb:.4f} {fby})  bwd "
-                f"{bwd_ms:.4f} ms (plain {plain_bwd:.4f}, bound {bb:.4f} {bby})  library {lib}")
+                f"{errs['y']:.2e} dx {errs['dx']:.2e} db {errs['db']:.2e} (db bit-equal in 2 runs)  "
+                f"fwd {fwd_ms * 1e3:.1f} us a call (plain {plain_fwd:.4f} ms, two-call "
+                f"{eager_ms:.4f} ms, bound {fb * 1e3:.3f} us {fby})  bwd {bwd_ms * 1e3:.1f} us a call "
+                f"(plain {plain_bwd:.4f} ms, bound {bb * 1e3:.3f} us {bby})  library {lib}")
             records.append(rec)
-            del x, b, dy, y, dx, db, want_y, want_dx, want_db
+            del x, b, dy, y, dx, db, db2, want_y, want_dx, want_db
     return records
+
+
+def round_trip_phase(torch, bias_act_mod, calls: list, seed: int) -> list:
+    """A labelled extra: what the train step pays for one bias_act, the
+    autograd round trip (``bias_act`` forward, then the gradients of x and
+    b through ``_BiasAct``) against the same function in eager ops with
+    autograd, and against ``x + b`` alone, at [16, 512] linear and at the
+    largest lrelu call; b in x's dtype, as the models pass it."""
+    import torch.nn.functional as F
+
+    lrelu = max((c for c in calls if c[2] == "lrelu"), key=lambda c: math.prod(c[0]))
+    fc = next(c for c in calls if c[0] == (16, 512) and c[2] == "linear")
+    out = []
+    for shape, dim, act, alpha, gain, clamp in (fc, lrelu):
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            x = torch.randn(shape, device="cuda", generator=g).to(dtype).requires_grad_(True)
+            b = torch.randn(shape[dim], device="cuda", generator=g).to(dtype).requires_grad_(True)
+            dy = torch.randn(shape, device="cuda", generator=g).to(dtype)
+            view = [-1 if i == dim else 1 for i in range(len(shape))]
+
+            def kernel():
+                y = bias_act_mod.bias_act(x, b, dim=dim, act=act, alpha=alpha, gain=gain,
+                                          clamp=clamp)
+                torch.autograd.grad(y, (x, b), dy)
+
+            def eager():
+                z = x + b.view(view)
+                y = F.leaky_relu(z, alpha) * gain if act == "lrelu" else z * gain
+                if clamp is not None:
+                    y = y.clamp(-clamp, clamp)
+                torch.autograd.grad(y, (x, b), dy)
+
+            def add_only():
+                torch.autograd.grad(x + b.view(view), (x, b), dy)
+
+            rec = dict(dtype=dtype_name, shape=list(shape), act=act,
+                       kernel_ms=cuda_ms(torch, kernel, 20), eager_ms=cuda_ms(torch, eager, 20),
+                       eager_add_ms=cuda_ms(torch, add_only, 20))
+            log(f"bias_act round trip (autograd) {dtype_name} {list(shape)} {act}: kernels "
+                f"{rec['kernel_ms'] * 1e3:.1f} us, eager same function {rec['eager_ms'] * 1e3:.1f} us, "
+                f"eager x + b {rec['eager_add_ms'] * 1e3:.1f} us")
+            out.append(rec)
+            del x, b, dy
+    return out
+
+
+def kernels_per_backward(torch, bias_act_mod, calls: list) -> dict:
+    """The kernels that one backward call at each distinct call of a step
+    launches, all of them inside one profiled region: as many kernels as
+    calls, each a bias_act backward kernel. Phase 3 has checked each
+    call's db, so no call launched none, and each launched one. The
+    profiler may drop kernel records (a region of 20 single-call
+    regions once saw 4 calls with none), so a region that shows fewer
+    kernels than calls is profiled again, up to 3 times; one that shows
+    more fails."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    distinct = list(dict.fromkeys(calls))
+    inputs = []
+    for shape, dim, *_ in distinct:
+        x = torch.randn(shape, device="cuda")
+        inputs.append((x, torch.randn(shape[dim], device="cuda")))
+    # each call's plan built and its kernel loaded outside the region
+    for (x, b), (_, dim, act, alpha, gain, clamp) in zip(inputs, distinct):
+        bias_act_mod.bias_act_backward(x, x, b, dim, act, alpha, gain, clamp)
+    torch.cuda.synchronize()
+    for attempt in range(1, 4):
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for (x, b), (_, dim, act, alpha, gain, clamp) in zip(inputs, distinct):
+                bias_act_mod.bias_act_backward(x, x, b, dim, act, alpha, gain, clamp)
+            torch.cuda.synchronize()
+        kernels = {e.key[:80]: e.count for e in prof.key_averages() if e.device_type.name == "CUDA"}
+        if sum(kernels.values()) >= len(distinct):
+            break
+    out = dict(calls=len(distinct), kernels=sum(kernels.values()), by_name=kernels,
+               profiled_regions=attempt)
+    log(f"bias_act backward, one call at each of the {len(distinct)} distinct calls in one "
+        f"profiled region: {out['kernels']} kernels ({kernels}), region {attempt} of 3")
+    if out["kernels"] != len(distinct) or any("bwd_" not in k for k in kernels):
+        raise AssertionError(f"a bias_act backward must be one launch: {out}")
+    del inputs
+    return out
+
+
+def host_costs(torch, bias_act_mod) -> dict:
+    """Host us a call of the two ways to read the current stream, and
+    where a bias_act call's host time goes at [16, 512] fp32 linear."""
+    reps = 20000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        torch.cuda.current_stream(0).cuda_stream
+    obj_us = (time.perf_counter() - t0) / reps * 1e6
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        torch._C._cuda_getCurrentRawStream(0)
+    raw_us = (time.perf_counter() - t0) / reps * 1e6
+    log(f"current stream, host us a call: torch.cuda.current_stream(0).cuda_stream {obj_us:.3f}, "
+        f"torch._C._cuda_getCurrentRawStream(0) {raw_us:.3f}")
+
+    # host us a call (perf_counter over back-to-back calls, the card keeping up)
+    def host_us(fn, reps=2000):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / reps * 1e6
+
+    x = torch.randn(16, 512, device="cuda")
+    b = torch.randn(512, device="cuda")
+    args = (1, "linear", 0.0, 1.0, None)
+    fwd = bias_act_mod._lib()[0]
+    parts = dict(forward_call=host_us(lambda: bias_act_mod.bias_act_forward(x, b, *args)),
+                 backward_call=host_us(lambda: bias_act_mod.bias_act_backward(x, x, b, *args)),
+                 torch_add=host_us(lambda: torch.add(x, b.view(1, -1))),
+                 torch_sum=host_us(lambda: torch.sum(x, dim=0, dtype=torch.float32)),
+                 empty_like=host_us(lambda: torch.empty_like(x)),
+                 plan_and_checks=host_us(lambda: bias_act_mod._check(x, b, *args)),
+                 ctypes_call_no_launch=host_us(lambda: fwd(0, 0, 0, 0, 0, 0)))
+    log("host us a call, [16, 512] fp32 linear: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+    return dict(stream_object_us=obj_us, raw_stream_us=raw_us, host_us_16x512=parts)
 
 
 def per_step_totals(records: list, dtype_name: str) -> dict:
@@ -636,6 +797,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Run the port's main paths on one GPU.")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=16, help="requests per served batch, train batch")
+    ap.add_argument("--bias-act-only", action="store_true",
+                    help="run phases 1-3 for bias_act alone, with where a call's host time "
+                         "goes, and print their JSON; prints no ok line")
     args = ap.parse_args()
 
     import torch
@@ -646,9 +810,11 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
+    if args.bias_act_only:
+        return bias_act_only(torch, args)
+
     from layoutdetr_tpu_torch.config import GeneratorConfig
     from layoutdetr_tpu_torch.generate import generate_layouts
-    from layoutdetr_tpu_torch.models.discriminator import Discriminator
     from layoutdetr_tpu_torch.models.generator import Generator
     from layoutdetr_tpu_torch.ops import _build, attention
     from layoutdetr_tpu_torch.ops import bias_act as bias_act_mod
@@ -678,16 +844,12 @@ def main() -> int:
     torch.manual_seed(args.seed)
     with torch.device("cuda"):
         model = Generator(cfg).eval()
-        disc = Discriminator(cfg)
+    calls, disc = bg_decoder_calls(torch, cfg, args.batch)
     states = (model.state_dict(), {k: v.clone() for k, v in disc.state_dict().items()})
-    calls = []
-    x0 = torch.randn(args.batch, cfg.hidden_dim, device="cuda")
-    with recorded_bias_act_calls(bias_act_mod, calls), torch.no_grad():
-        disc.bg_decoder(x0)
     del disc
-    if len(calls) != 48:
-        raise AssertionError(f"{len(calls)} bias_act calls in one bg_decoder forward, expected 48")
     bias_cases = bias_act_phase(torch, bias_act_mod, calls, args.seed)
+    round_trip = round_trip_phase(torch, bias_act_mod, calls, args.seed)
+    backward_kernels = kernels_per_backward(torch, bias_act_mod, calls)
 
     # 4. full-width model: kernel vs plain attention (fp32, bf16), bf16 vs
     # fp32, card vs CPU
@@ -792,12 +954,78 @@ def main() -> int:
                     "model_max_abs": err, "model_bf16_max_abs": err_bf16,
                     "model_bf16_vs_fp32_max_abs": err_bf16_fp32, "cpu_max_abs": err_cpu,
                     "attention_cases": attn_cases, "bias_act_cases": bias_cases,
+                    "bias_act_round_trip": round_trip,
+                    "bias_act_kernels_per_backward": backward_kernels,
+                    "bias_act_largest_lrelu": largest_lrelu(bias_cases),
                     "build_s": build_s, "wall_s": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0
+
+
+def bg_decoder_calls(torch, cfg, batch: int) -> list:
+    """The arguments of the 48 bias_act calls of one bg_decoder forward at
+    full width (seeded random weights)."""
+    from layoutdetr_tpu_torch.models.discriminator import Discriminator
+    from layoutdetr_tpu_torch.ops import bias_act as bias_act_mod
+
+    with torch.device("cuda"):
+        disc = Discriminator(cfg)
+    calls = []
+    x0 = torch.randn(batch, cfg.hidden_dim, device="cuda")
+    with recorded_bias_act_calls(bias_act_mod, calls), torch.no_grad():
+        disc.bg_decoder(x0)
+    if len(calls) != 48:
+        raise AssertionError(f"{len(calls)} bias_act calls in one bg_decoder forward, expected 48")
+    return calls, disc
+
+
+def bias_act_only(torch, args) -> int:
+    """Phases 1-3 for bias_act alone: build, each call of a step vs the
+    plain version, the round trip, one launch a backward, where a call's
+    host time goes; one JSON line."""
+    from layoutdetr_tpu_torch.config import GeneratorConfig
+    from layoutdetr_tpu_torch.ops import _build
+    from layoutdetr_tpu_torch.ops import bias_act as bias_act_mod
+
+    card = nvidia_smi()
+    log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | tree {ROOT}")
+    t0 = time.perf_counter()
+    _build.build("bias_act")
+    log(f"build bias_act.cu: {time.perf_counter() - t0:.2f} s")
+    torch.manual_seed(args.seed)
+    calls, disc = bg_decoder_calls(torch, GeneratorConfig(), args.batch)
+    del disc
+    cases = bias_act_phase(torch, bias_act_mod, calls, args.seed)
+    round_trip = round_trip_phase(torch, bias_act_mod, calls, args.seed)
+    backward_kernels = kernels_per_backward(torch, bias_act_mod, calls)
+    host = host_costs(torch, bias_act_mod)
+    totals = {d: per_step_totals(cases, d) for d in ("float32", "bfloat16")}
+    for d, t in totals.items():
+        log(f"bias_act per step {d}: forward {t['fwd_ms']:.4f} ms (bound {t['fwd_bound_ms']:.4f}), "
+            f"backward {t['bwd_ms']:.4f} ms (bound {t['bwd_bound_ms']:.4f}); the "
+            f"{t['library_calls']} linear calls {t['fwd_ms_library_calls']:.4f} / "
+            f"{t['bwd_ms_library_calls']:.4f} ms vs torch.add {t['library_fwd_ms']:.4f} / "
+            f"torch.sum {t['library_bwd_ms']:.4f} ms")
+    log(json.dumps({"tree": ROOT, "card": card, "per_step": totals,
+                    "largest_lrelu": largest_lrelu(cases), "round_trip": round_trip,
+                    "kernels_per_backward": backward_kernels, "host": host, "cases": cases}))
+    return 0
+
+
+def largest_lrelu(cases: list) -> dict:
+    """The largest lrelu call per dtype: times, bounds and the share of the
+    bound reached (bound / time)."""
+    out = {}
+    for d in ("float32", "bfloat16"):
+        r = max((c for c in cases if c["dtype"] == d and c["act"] == "lrelu"),
+                key=lambda c: math.prod(c["shape"]))
+        out[d] = dict(shape=r["shape"], fwd_ms=r["fwd_ms"], fwd_bound_ms=r["fwd_bound_ms"],
+                      fwd_share=r["fwd_bound_ms"] / r["fwd_ms"], bwd_ms=r["bwd_ms"],
+                      bwd_bound_ms=r["bwd_bound_ms"], bwd_share=r["bwd_bound_ms"] / r["bwd_ms"])
+    return out
 
 
 def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list) -> list:
