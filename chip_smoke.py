@@ -4,11 +4,15 @@ kernel on them against its plain version.
 
     python3 chip_smoke.py [--seed 0] [--batch 16]
     python3 chip_smoke.py --bias-act-only
+    python3 chip_smoke.py --attention-only
 
 The second form runs phases 1-3 for bias_act alone, adds where a call's
 host time goes (two ways to read the current stream, the host us of a
 call beside torch.add / torch.sum / empty_like), and prints one JSON line
-and no ok line.
+and no ok line. The third does the same for fused_attention: its 8 cases,
+and the host us of a call at [18, 4, 64, 192] bf16 beside sdpa's, split
+into plan and checks, empty_like, the per-call tensor-map encoding, a bare
+ctypes call and the stream read.
 
 Phases (any failure ends the run with a non-zero exit and no result):
 
@@ -20,7 +24,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
    and the card's bound:
    - fused_attention [B*9, 4, T, 192], T in {256, 64}, fp32 and bf16, key
      padding down to length 2; deterministic, and with dropout 0.1 against
-     the plain version with the same Philox keep mask;
+     the plain version with the same Philox keep mask; each case's share
+     of its bound and its time over sdpa's;
    - bias_act forward and backward at every distinct shape of the train
      step's 48 calls (D's bg_decoder at batch 16), fp32 and bf16 (b in
      x's dtype, as the models pass it; a bf16 call also with b in fp32,
@@ -217,11 +222,13 @@ def attention_phase(torch, attention, seed: int, batch: int) -> list:
                 rec = dict(dtype=dtype_name, shape=[b, h, t, d], dropout_rate=rate, max_abs_err=err,
                            tol=tol, kept_fraction=kept, ms=ms, plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           share_of_bound=bound_ms / ms, vs_library=ms / library_ms,
                            gflop=flops / 1e9, mbytes=nbytes / 1e6, tflops=flops / ms / 1e9)
                 log(f"fused_attention {dtype_name} {rec['shape']} dropout {rate}: max-abs {err:.3e} "
                     f"(bar {tol:.3e}), kept {kept:.5f}  kernel {ms:.4f} ms ({rec['tflops']:.2f} "
                     f"TFLOP/s)  plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  bound "
-                    f"{bound_ms:.4f} ms ({bound_by})")
+                    f"{bound_ms:.4f} ms ({bound_by})  share of bound {rec['share_of_bound']:.3f}, "
+                    f"kernel / sdpa {rec['vs_library']:.3f}")
                 cases.append(rec)
                 del q, k, v, out, want, mask, amask
     return cases
@@ -479,6 +486,52 @@ def host_costs(torch, bias_act_mod) -> dict:
     log("host us a call, [16, 512] fp32 linear: "
         + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
     return dict(stream_object_us=obj_us, raw_stream_us=raw_us, host_us_16x512=parts)
+
+
+def attention_host_costs(torch, attention) -> dict:
+    """Host us a call of fused_attention at [18, 4, 64, 192] bf16 (the
+    strided view BERT hands over), 2000 back-to-back calls, beside one
+    sdpa call on the same inputs, and where the call's time goes: plan and
+    checks, empty_like, the four tensor maps encoded per call, a bare
+    ctypes call and the raw stream read."""
+    import torch.nn.functional as F
+
+    q, k, v = (torch.randn(18, 64, 4, 192, device="cuda").bfloat16().transpose(1, 2)
+               for _ in range(3))
+    bias = torch.zeros(18, 64, device="cuda")
+    amask = bias.bfloat16()[:, None, None, :]
+    fn, enc, stream = attention._lib()
+    plan = attention._check(q, k, v, bias, None, 0.125, 0.0)
+    out = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+
+    def host_us(call, reps=2000):
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / reps * 1e6
+
+    reps = 2000
+    t0 = time.perf_counter()
+    if enc(plan.addr, *ptrs, reps) != 0:
+        raise AssertionError("encoding the tensor maps failed")
+    encode_us = (time.perf_counter() - t0) / reps * 1e6
+    parts = dict(
+        fused_attention_call=host_us(lambda: attention.fused_attention(q, k, v, bias, scale=0.125)),
+        sdpa_call=host_us(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask,
+                                                                 scale=0.125)),
+        plan_and_checks=host_us(lambda: attention._check(q, k, v, bias, out, 0.125, 0.0)),
+        empty_like=host_us(lambda: torch.empty_like(q)),
+        encode_four_maps=encode_us,
+        ctypes_call_no_launch=host_us(lambda: fn(0, 0, 0, 0, 0, 0, 0, 0, 0)),
+        raw_stream=host_us(lambda: stream(0)))
+    log("attention host us a call, [18, 4, 64, 192] bf16: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+    return parts
 
 
 def per_step_totals(records: list, dtype_name: str) -> dict:
@@ -800,6 +853,9 @@ def main() -> int:
     ap.add_argument("--bias-act-only", action="store_true",
                     help="run phases 1-3 for bias_act alone, with where a call's host time "
                          "goes, and print their JSON; prints no ok line")
+    ap.add_argument("--attention-only", action="store_true",
+                    help="run phases 1-3 for fused_attention alone, with where a call's host "
+                         "time goes, and print their JSON; prints no ok line")
     args = ap.parse_args()
 
     import torch
@@ -812,6 +868,8 @@ def main() -> int:
 
     if args.bias_act_only:
         return bias_act_only(torch, args)
+    if args.attention_only:
+        return attention_only(torch, args)
 
     from layoutdetr_tpu_torch.config import GeneratorConfig
     from layoutdetr_tpu_torch.generate import generate_layouts
@@ -1012,6 +1070,24 @@ def bias_act_only(torch, args) -> int:
     log(json.dumps({"tree": ROOT, "card": card, "per_step": totals,
                     "largest_lrelu": largest_lrelu(cases), "round_trip": round_trip,
                     "kernels_per_backward": backward_kernels, "host": host, "cases": cases}))
+    return 0
+
+
+def attention_only(torch, args) -> int:
+    """Phases 1-3 for fused_attention alone: build, the 8 cases vs the
+    plain version and sdpa, where a call's host time goes; one JSON line."""
+    from layoutdetr_tpu_torch.ops import _build, attention
+
+    card = nvidia_smi()
+    log(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | tree {ROOT}")
+    t0 = time.perf_counter()
+    lib = _build.build("attention")
+    log(f"build attention.cu: {time.perf_counter() - t0:.2f} s")
+    with open(lib + ".log") as f:
+        log(f.read().strip())
+    cases = attention_phase(torch, attention, args.seed, args.batch)
+    host = attention_host_costs(torch, attention)
+    log(json.dumps({"tree": ROOT, "card": card, "host": host, "cases": cases}))
     return 0
 
 

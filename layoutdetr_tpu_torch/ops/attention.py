@@ -17,12 +17,24 @@ same entries.
 ``fused_attention`` launches the kernel for CUDA tensors and uses
 ``attention_ref`` only for CPU tensors; there is no fallback from one to
 the other. ``LAUNCHES["fused_attention"]`` counts kernel launches.
+
+The host path is kept light: a ``Plan`` per call signature (shapes,
+strides and dtypes of q, k, v, the output and the bias, scale, rate) is
+built once and cached. It holds the checked geometry, the bf16 body's
+tensor-map geometry (``map_geometry``: dims and byte strides of each map)
+and the kernel's scalars in a ctypes Structure that the C entry point
+takes by pointer. Per call only the device and the 16-byte alignment of
+the pointers are checked, the output is allocated, the stream is read
+with ``torch._C._cuda_getCurrentRawStream`` and, for bf16, the C side
+encodes the four tensor maps (they hold the pointers).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -97,39 +109,155 @@ def attention_ref(q, k, v, bias, scale, dropout_rate=0.0, keep_mask=None):
     return torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), v)
 
 
+# ---------------------------------------------------------------------------
+# plans
+# ---------------------------------------------------------------------------
+
+class _MapGeom(ctypes.Structure):
+    """struct MapGeom of attention.cu, field for field."""
+    _fields_ = [("dims", ctypes.c_uint64 * 4), ("strides", ctypes.c_uint64 * 3),
+                ("pos_h", ctypes.c_int), ("pos_t", ctypes.c_int), ("pos_b", ctypes.c_int),
+                ("pad_", ctypes.c_int)]
+
+
+class _Params(ctypes.Structure):
+    """struct Params of attention.cu, field for field."""
+    _fields_ = [("dtype", ctypes.c_int), ("batch", ctypes.c_int), ("heads", ctypes.c_int),
+                ("seq", ctypes.c_int), ("head_dim", ctypes.c_int), ("scale", ctypes.c_float),
+                ("dropout", ctypes.c_int), ("threshold", ctypes.c_uint),
+                ("inv_keep", ctypes.c_float), ("pad_", ctypes.c_int),
+                ("strides", ctypes.c_longlong * 12), ("maps", _MapGeom * 4)]
+
+
+class Spec(NamedTuple):
+    """What a plan needs of one tensor: shape, strides (elements), dtype."""
+    shape: tuple
+    stride: tuple
+    dtype: torch.dtype
+
+    @classmethod
+    def of(cls, t: torch.Tensor) -> "Spec":
+        return cls(tuple(t.shape), t.stride(), t.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class MapGeometry:
+    """The TMA map of one of q, k, v, o (bf16 body): ``dims`` in elements,
+    the head dim first and then head, sequence and batch in order of
+    increasing stride; ``strides`` the byte strides of dims 1-3; ``pos``
+    the map dims (1-3) of (head, sequence, batch)."""
+    dims: tuple
+    strides: tuple
+    pos: tuple
+
+
+def map_geometry(spec: Spec) -> MapGeometry:
+    """The 4-d TMA map over a [B, H, T, D] view with D contiguous. A dim of
+    size 1 is never stepped: it goes last, with a stride past the others."""
+    b, h, t, d = spec.shape
+    esize = spec.dtype.itemsize
+    sizes = dict(h=h, t=t, b=b)
+    byte = dict(h=spec.stride[1] * esize, t=spec.stride[2] * esize, b=spec.stride[0] * esize)
+    real = sorted((n for n in "htb" if sizes[n] > 1), key=lambda n: byte[n])
+    extent = max([byte[n] * sizes[n] for n in real] + [d * esize])
+    order = real + [n for n in "htb" if sizes[n] == 1]
+    for n in order[len(real):]:
+        byte[n] = extent
+    return MapGeometry((d, *(sizes[n] for n in order)), tuple(byte[n] for n in order),
+                       tuple(order.index(n) + 1 for n in "htb"))
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Everything about a call that its signature fixes: the body, the
+    bf16 body's maps of q, k, v, o, and the ``_Params`` the C entry point
+    takes by pointer (``addr``, kept alive by ``params``)."""
+    body: str  # "fp32" or "bf16"
+    maps: tuple  # MapGeometry of q, k, v, o (bf16), else ()
+    params: _Params = dataclasses.field(compare=False, repr=False)
+    addr: int = dataclasses.field(compare=False, repr=False)
+
+
+def make_plan(q: Spec, k: Spec, v: Spec, o: Spec, bias: Spec, scale: float,
+              dropout_rate: float) -> Plan:
+    """The plan of one call signature; raises on what the kernels do not take."""
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"fused_attention takes float32 or bfloat16, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype or o.dtype != q.dtype:
+        raise TypeError("q, k and v must share one dtype")
+    if len(q.shape) != 4 or k.shape != q.shape or v.shape != q.shape or o.shape != q.shape:
+        raise ValueError(f"q, k, v must be [B,H,S,D] of one shape, got {q.shape}, {k.shape}, "
+                         f"{v.shape}")
+    b, h, s, d = q.shape
+    if d != HEAD_DIM:
+        raise ValueError(f"head dim {d}: the kernel is built for {HEAD_DIM}")
+    if min(b, h, s) < 1:
+        raise ValueError("fused_attention's kernels take no empty tensor")
+    if bias.dtype != torch.float32 or bias.shape != (b, s) or (s > 1 and bias.stride[1] != 1) or (
+            b > 1 and bias.stride[0] != s):
+        raise ValueError(f"bias must be a contiguous float32 [{b}, {s}] tensor")
+    esize = q.dtype.itemsize
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
+        if t.stride[3] != 1:
+            raise ValueError(f"{name}'s head dim must be contiguous (stride 1)")
+        if any(st * esize % 16 for st, n in zip(t.stride[:3], t.shape[:3]) if n > 1):
+            raise ValueError(f"every row of {name} must start 16-byte aligned: byte strides "
+                             f"{[st * esize for st in t.stride[:3]]}")
+    bf16 = q.dtype == torch.bfloat16
+    maps = tuple(map_geometry(t) for t in (q, k, v, o)) if bf16 else ()
+    params = _Params(dtype=_DTYPE_CODE[q.dtype], batch=b, heads=h, seq=s, head_dim=d,
+                     scale=scale, dropout=int(dropout_rate > 0.0),
+                     threshold=dropout_threshold(dropout_rate),
+                     inv_keep=1.0 / (1.0 - dropout_rate),
+                     strides=(ctypes.c_longlong * 12)(*(st for t in (q, k, v, o)
+                                                        for st in t.stride[:3])))
+    for geom, m in zip(params.maps, maps):
+        geom.dims[:] = m.dims
+        geom.strides[:] = m.strides
+        geom.pos_h, geom.pos_t, geom.pos_b = m.pos
+    return Plan("bf16" if bf16 else "fp32", maps, params, ctypes.addressof(params))
+
+
+_plans: dict = {}
+
+
+def _check(q, k, v, bias, out=None, scale: float = 1.0, dropout_rate: float = 0.0) -> Plan:
+    """The cached plan of this call (``out`` defaults to ``empty_like(q)``'s
+    layout), after the checks a call needs: one device, every pointer
+    16-byte aligned. Raises on whatever the kernels do not take."""
+    if out is None:
+        out = torch.empty_like(q)
+    key = (q.shape, q.stride(), q.dtype, k.shape, k.stride(), k.dtype, v.shape, v.stride(),
+           v.dtype, out.stride(), bias.shape, bias.stride(), bias.dtype, scale, dropout_rate)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = make_plan(Spec.of(q), Spec.of(k), Spec.of(v), Spec.of(out),
+                                       Spec.of(bias), scale, dropout_rate)
+    dev = q.get_device()
+    if k.get_device() != dev or v.get_device() != dev or bias.get_device() != dev:
+        raise ValueError("q, k, v and bias must lie on one device")
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr() | out.data_ptr()) % 16:
+        raise ValueError("q, k, v must start 16-byte aligned")
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# the kernel
+# ---------------------------------------------------------------------------
+
 @functools.cache
 def _lib():
     lib = _build.load("attention")
+    size = lib.layoutdetr_attention_params_size()
+    if size != ctypes.sizeof(_Params):
+        raise RuntimeError(f"attention.cu's Params is {size} bytes, _Params {ctypes.sizeof(_Params)}")
     fn = lib.layoutdetr_attention_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
-
-
-def _check(q, k, v, bias):
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"fused_attention takes float32 or bfloat16, got {q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("q, k and v must share one dtype")
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must be [B,H,S,D] of one shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    b, _, s, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"head dim {d}: the kernel is built for {HEAD_DIM}")
-    if bias.dtype != torch.float32 or tuple(bias.shape) != (b, s) or not bias.is_contiguous():
-        raise ValueError(f"bias must be a contiguous float32 [{b}, {s}] tensor")
-    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    esize = q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name}'s head dim must be contiguous (stride 1)")
-        if t.data_ptr() % 16 or any(st * esize % 16 for st in t.stride()[:3]):
-            raise ValueError(f"every row of {name} must start 16-byte aligned")
+    enc = lib.layoutdetr_attention_encode_maps
+    enc.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int]
+    enc.restype = ctypes.c_int
+    return fn, enc, torch._C._cuda_getCurrentRawStream
 
 
 def fused_attention(q, k, v, bias, *, scale, dropout_rate=0.0, seed=None):
@@ -155,18 +283,15 @@ def fused_attention(q, k, v, bias, *, scale, dropout_rate=0.0, seed=None):
             b, h, s, _ = q.shape
             mask = keep_mask(seed, b, h, s, dropout_rate)
         return attention_ref(q, k, v, bias, scale, dropout_rate, mask)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
         raise ValueError(f"fused_attention runs on CUDA or CPU tensors, got {q.device}")
-    _check(q, k, v, bias)
-    b, h, s, d = q.shape
     out = torch.empty_like(q)
-    strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, out) for st in t.stride()[:3]))
-    with torch.cuda.device(q.device):
-        err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                     ctypes.addressof(strides), b, h, s, d, float(scale), float(dropout_rate), seed,
-                     dropout_threshold(dropout_rate), _DTYPE_CODE[q.dtype],
-                     torch.cuda.current_stream(q.device).cuda_stream)
+    plan = _check(q, k, v, bias, out, float(scale), float(dropout_rate))
+    fn, _, stream = _lib()
+    dev = q.get_device()
+    err = fn(plan.addr, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+             seed, dev, stream(dev))
     if err != 0:
-        raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"attention kernel ({plan.body}) launch failed: cudaError {err}")
     LAUNCHES["fused_attention"] += 1
     return out

@@ -6,6 +6,10 @@ runs it. Tolerances: 1e-5 max-abs in fp32 (rounding of two fp32 softmax
 implementations), 2e-2 in bf16 (a bf16 ulp at |x| ~ 2..4 is 1.6e-2).
 """
 
+import ctypes
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -13,7 +17,7 @@ import torch
 import jax.numpy as jnp
 
 from layoutdetr_tpu.ops import attention as jax_attention
-from layoutdetr_tpu_torch.ops import attention
+from layoutdetr_tpu_torch.ops import _build, attention
 
 from test_torch_common import assert_max_abs
 from test_torch_common import one_torch_thread  # noqa: F401 (module-scoped autouse fixture)
@@ -178,34 +182,179 @@ def test_wrapper_checks_accept_strided_heads():
     attention._check(q, q, q, torch.zeros(2, 16))
 
 
+# ---------------------------------------------------------------------------
+# the wrapper's plan (pure Python: the geometry the kernels are handed)
+# ---------------------------------------------------------------------------
+
+def _bthd(b, t, h, dtype=torch.bfloat16):
+    """A [B,T,H,D] projection viewed as [B,H,T,D], as BERT hands it over."""
+    return torch.zeros(b, t, h, 192, dtype=dtype).transpose(1, 2)
+
+
+def test_plan_of_the_strided_view():
+    q = _bthd(18, 77, 4)
+    plan = attention._check(q, q, q, torch.zeros(18, 77), scale=0.125, dropout_rate=0.1)
+    assert plan.body == "bf16"
+    # dims (D, H, T, B) with the view's byte strides: head 384, row 4 * 384
+    want = attention.MapGeometry((192, 4, 77, 18), (384, 1536, 77 * 1536), (1, 2, 3))
+    assert plan.maps == (want,) * 4  # o = empty_like(q) keeps q's layout
+    p = plan.params
+    assert (p.dtype, p.batch, p.heads, p.seq, p.head_dim, p.dropout) == (1, 18, 4, 77, 192, 1)
+    assert p.scale == pytest.approx(0.125) and p.inv_keep == pytest.approx(1 / 0.9)
+    assert p.threshold == attention.dropout_threshold(0.1)
+    assert list(p.strides) == [77 * 4 * 192, 192, 4 * 192] * 4
+    assert [tuple(p.maps[0].dims), tuple(p.maps[0].strides)] == [want.dims, want.strides]
+    assert (p.maps[3].pos_h, p.maps[3].pos_t, p.maps[3].pos_b) == (1, 2, 3)
+    assert plan.addr == ctypes.addressof(plan.params)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((2, 4, 256, 192), attention.MapGeometry((192, 256, 4, 2), (384, 256 * 384, 4 * 256 * 384),
+                                             (2, 1, 3))),
+    # dims of size 1 are never stepped: last, with a stride past the others
+    ((1, 4, 1, 192), attention.MapGeometry((192, 4, 1, 1), (384, 1536, 1536), (1, 2, 3))),
+    ((3, 1, 64, 192), attention.MapGeometry((192, 64, 3, 1), (384, 64 * 384, 3 * 64 * 384),
+                                            (3, 1, 2))),
+])
+def test_map_geometry_of_contiguous_and_trivial_dims(shape, want):
+    got = attention.map_geometry(attention.Spec.of(torch.zeros(shape, dtype=torch.bfloat16)))
+    assert got == want
+    assert all(st % 16 == 0 for st in got.strides)
+
+
+def test_plan_fp32_has_no_maps():
+    q = _bthd(2, 200, 4, torch.float32)
+    plan = attention._check(q, q, q, torch.zeros(2, 200))
+    assert plan.body == "fp32" and plan.maps == ()
+    assert plan.params.dropout == 0 and plan.params.inv_keep == 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plan_refuses_rows_not_16_byte_aligned(dtype):
+    q = torch.zeros(2, 16, 4, 194, dtype=dtype)[..., :192].transpose(1, 2)  # head stride 194
+    with pytest.raises(ValueError, match="16-byte"):
+        attention._check(q, q, q, torch.zeros(2, 16))
+    # a dim of size 1 may have any stride: it is never stepped
+    one = torch.zeros(4 * 192, dtype=dtype).as_strided((1, 4, 1, 192), (999, 192, 7, 1))
+    attention._check(one, one, one, torch.zeros(1, 1))
+
+
+def test_plans_are_cached_per_signature():
+    q = _bthd(2, 64, 4)
+    bias = torch.zeros(2, 64)
+    a = attention._check(q, q, q, bias, scale=0.5)
+    assert attention._check(_bthd(2, 64, 4), q, q, torch.ones(2, 64), scale=0.5) is a
+    assert attention._check(q, q, q, bias, scale=0.25) is not a
+    assert attention._check(q.contiguous(), q, q, bias, scale=0.5) is not a
+
+
+def _c_struct_fields(src: str, name: str):
+    body = re.search(r"struct %s \{(.*?)\n\};" % name, src, re.S).group(1)
+    fields = []
+    for line in body.splitlines():
+        line = line.split("//")[0].strip().rstrip(";")
+        if not line:
+            continue
+        ctype, names = re.match(r"(unsigned|long long|cuuint64_t|\w+)\s+(.*)", line).groups()
+        for n in names.split(","):
+            m = re.match(r"(\w+)((?:\[\d+\])*)", n.strip())
+            count = 1
+            for dim in re.findall(r"\d+", m.group(2)):
+                count *= int(dim)
+            fields.append((m.group(1), ctype, count))
+    return fields
+
+
+def test_params_structure_matches_the_c_struct():
+    """Field for field, and so byte for byte: ``_lib()`` also checks the
+    size against the built library's on the card."""
+    src = open(os.path.join(_build.CSRC, "attention.cu")).read()
+    ctypes_of = {"int": ctypes.c_int, "float": ctypes.c_float, "unsigned": ctypes.c_uint,
+                 "long long": ctypes.c_longlong, "cuuint64_t": ctypes.c_uint64,
+                 "MapGeom": attention._MapGeom}
+    for name, cls in (("MapGeom", attention._MapGeom), ("Params", attention._Params)):
+        fields = _c_struct_fields(src, name)
+        got = []
+        for fname, ftype in cls._fields_:
+            count = getattr(ftype, "_length_", 1)
+            base = getattr(ftype, "_type_", ftype) if count > 1 else ftype
+            got.append((fname, base, count))
+        want = [(n, ctypes_of[t], c) for n, t, c in fields]
+        assert got == want, name
+    assert ctypes.sizeof(attention._Params) == 424
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+def _card_inputs(b, h, t, dtype, layout, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if layout == "contiguous":
+        q, k, v = (torch.randn(b, h, t, 192, device="cuda", generator=g).to(dtype) for _ in range(3))
+    else:  # [B, T, H, D] projections viewed as [B, H, T, D], as BERT gives them
+        q, k, v = (torch.randn(b, t, h, 192, device="cuda", generator=g).to(dtype).transpose(1, 2)
+                   for _ in range(3))
+    lens = torch.randint(2, t + 2, (b,), device="cuda", generator=g).clamp(max=t)
+    lens[0] = min(2, t)
+    bias = torch.where(torch.arange(t, device="cuda")[None] < lens[:, None], 0.0, -10000.0)
+    if b > 1 and t > 2:  # a row whose only unmasked keys are the last two
+        bias[1] = -10000.0
+        bias[1, -2:] = 0.0
+    return q, k, v, bias
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("t", [1, 64, 77, 256])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 77, 128, 200, 256])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_kernel_matches_plain_on_card(dtype, tol, t, rate):
+@pytest.mark.parametrize("layout,b,h", [("strided", 18, 4), ("contiguous", 18, 4),
+                                        ("strided", 3, 1)])
+def test_kernel_matches_plain_on_card(dtype, tol, t, rate, layout, b, h):
     """fp32 on the CUDA cores, bf16 on the tensor cores; bf16 is held
     against the fp32 plain version of the same bf16 values, to 2e-2 (the
     bf16 spacing of outputs up to 4). With dropout both sides drop the same
     Philox-drawn entries, and the bar grows with max |o| / 4 where the
-    1 / (1 - rate) scaling makes outputs larger."""
+    1 / (1 - rate) scaling makes outputs larger. [3, 1] heads give 3
+    (sequence, head) pairs: fewer tiles than SMs, one head a map dim of
+    size 1."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    g = torch.Generator(device="cuda").manual_seed(t)
-    b, h, d = 18, 4, 192
-    q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=g).to(dtype).transpose(1, 2)
-               for _ in range(3))
-    lens = torch.randint(2, t + 2, (b,), device="cuda", generator=g).clamp(max=t)
-    lens[0] = min(2, t)
-    bias = torch.where(torch.arange(t, device="cuda")[None] < lens[:, None], 0.0, -10000.0)
+    q, k, v, bias = _card_inputs(b, h, t, dtype, layout, t)
     before = attention.LAUNCHES["fused_attention"]
-    got = attention.fused_attention(q, k, v, bias, scale=d ** -0.5, dropout_rate=rate,
+    got = attention.fused_attention(q, k, v, bias, scale=192 ** -0.5, dropout_rate=rate,
                                     seed=77 if rate else None)
     torch.cuda.synchronize()
     assert attention.LAUNCHES["fused_attention"] == before + 1
     mask = attention.keep_mask(77, b, h, t, rate, device="cuda") if rate else None
-    want = attention.attention_ref(q.float(), k.float(), v.float(), bias, d ** -0.5, rate, mask)
-    assert got.dtype == dtype and got.shape == q.shape
+    want = attention.attention_ref(q.float(), k.float(), v.float(), bias, 192 ** -0.5, rate, mask)
+    assert got.dtype == dtype and got.shape == q.shape and got.stride() == q.stride()
     if rate:
         tol = tol * max(1.0, float(want.abs().max()) / 4.0)
-    assert_max_abs(got, want.cpu().numpy(), tol, f"kernel {dtype} T={t} rate={rate}")
+    assert_max_abs(got, want.cpu().numpy(), tol, f"kernel {dtype} T={t} rate={rate} {layout}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_kernel_gives_the_same_bits_twice_on_card(dtype, rate):
+    """No atomics and no order that depends on the schedule: two launches
+    on the same inputs agree bit for bit (T=200: a ragged last chunk)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, bias = _card_inputs(18, 4, 200, dtype, "strided", 5)
+    run = lambda: attention.fused_attention(q, k, v, bias, scale=0.07, dropout_rate=rate,
+                                            seed=3 if rate else None)
+    first = run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, run())
+
+
+@pytest.mark.cuda
+def test_params_size_matches_the_library_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    attention._lib()  # raises if the sizes differ
+    assert _build.load("attention").layoutdetr_attention_params_size() == ctypes.sizeof(
+        attention._Params)
