@@ -54,7 +54,26 @@ Phases (any failure ends the run with a non-zero exit and no result):
    split between the text pass, Gmain, Dmain, Adam and EMA;
 8. step correctness: one deterministic full-width fp32 step with the
    kernels vs with the plain versions, and one small full-width step
-   (B=2, T=64) on the card vs on the CPU.
+   (B=2, T=64) on the card vs on the CPU;
+9. the training run (slice 3's main path): ``python -m
+   layoutdetr_tpu_torch.train`` through ``train.main`` at full width
+   (GeneratorConfig() widths, weights random from --seed) on a structured
+   synthetic zip of 64 samples (256^2 backgrounds, up to 9 elements), bf16,
+   --max-text-length auto, ADA, R1 (gamma 1) and path length (weight 2),
+   the device feed, a snapshot each tick, 17 steps: 17 main steps, 5
+   path-length steps (batches 0, 4, 8, 12, 16) and 2 R1 steps (0, 16), with
+   the launch counts set to 0 before and read after: 12 attention launches
+   a main and a reg step, plus 12 a G and a D forward of the startup module
+   summaries and 12 an image snapshot (one a tick); 48 bias_act forward and
+   48 backward launches a main step, plus 48 forward in D's summary, none
+   in a reg step. Checks: finite tick lines and stats.jsonl, every step's
+   stats present, ADA's p updated 4 times, the snapshot and its .gcfg.json,
+   trainable parameters moved and frozen ones not; then a resume from the
+   snapshot through the host loader (--device-feed off --workers 2
+   --max-steps 2), whose restored state must equal the snapshot bit for
+   bit, and one request served from the snapshot by ``generate --ckpt``
+   (G_ema). sec/kimg, the reg steps' share of the steps' device time and
+   peak memory are printed beside the launch counts.
 
 The last three lines of standard output are the kernels JSON, the card
 (nvidia-smi name, power limit) and ``{"ok": true, "device": {...}}``.
@@ -843,6 +862,224 @@ def step_correctness_phase(torch, np, cfg, states, args, attention, bias_act_mod
 
 
 # ---------------------------------------------------------------------------
+# 9. the training run
+# ---------------------------------------------------------------------------
+
+RUN_STEPS, RESUME_STEPS, G_REG, D_REG, ADA_INTERVAL = 17, 2, 4, 16, 4
+
+
+def same_bits(torch, a, b, where: str = "") -> None:
+    """Raise unless ``a`` and ``b`` (nested dicts/lists of tensors and
+    scalars) are equal bit for bit, dtype included."""
+    if isinstance(a, torch.Tensor):
+        if not (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu())):
+            raise AssertionError(f"{where}: differs")
+    elif isinstance(a, dict):
+        if a.keys() != b.keys():
+            raise AssertionError(f"{where}: keys differ")
+        for k in a:
+            same_bits(torch, a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{where}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_bits(torch, x, y, f"{where}[{i}]")
+    elif a != b:
+        raise AssertionError(f"{where}: {a} != {b}")
+
+
+@contextlib.contextmanager
+def checked_restore(torch, train_loop, seen: list):
+    """Inside, the training loop's restore is followed by a bit-for-bit
+    comparison of the restored state with the snapshot file."""
+    from layoutdetr_tpu_torch.utils.checkpoint import load_snapshot, snapshot_of
+
+    real = train_loop.restore_checkpoint
+
+    def restore(path, state):
+        out = real(path, state)
+        same_bits(torch, snapshot_of(state), load_snapshot(path), "restored state")
+        seen.append(state.step)
+        return out
+
+    train_loop.restore_checkpoint = restore
+    try:
+        yield
+    finally:
+        train_loop.restore_checkpoint = real
+
+
+def read_run(run_dir: str) -> tuple:
+    """(stats.jsonl records, the tick status lines of log.txt)."""
+    with open(os.path.join(run_dir, "stats.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    with open(os.path.join(run_dir, "log.txt")) as f:
+        ticks = [line.split() for line in f if line.startswith("tick ")]
+    return records, ticks
+
+
+def check_ticks(records: list, ticks: list, steps: int, what: str) -> None:
+    """Every tick line's numbers and every reported stat finite; each main
+    stat reported once a step (the collector drops non-finite values)."""
+    if len(records) != len(ticks) or not records:
+        raise AssertionError(f"{what}: {len(records)} stats.jsonl lines, {len(ticks)} tick lines")
+    for fields in ticks:
+        values = [float(v) for v in fields[1::2]]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"{what}: tick line {' '.join(fields)}")
+    for rec in records:
+        bad = [k for k, v in rec.items() if isinstance(v, dict) and v["num"]
+               and not (math.isfinite(v["mean"]) and math.isfinite(v["std"]))]
+        bad += [k for k, v in rec.items() if isinstance(v, float) and not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{what}: non-finite {bad}")
+    got = sum(r["Loss/G/loss_Ggen"]["num"] for r in records)
+    if got != steps or sum(r["Loss/D/loss_Dreal"]["num"] for r in records) != steps:
+        raise AssertionError(f"{what}: main-step stats of {got} steps, expected {steps}")
+
+
+def training_run_phase(torch, np, args, card, attention, bias_act_mod) -> dict:
+    """Slice 3's main path, ``python -m layoutdetr_tpu_torch.train`` at full
+    width, then a resume through the host loader and one request served
+    from the snapshot."""
+    import tempfile
+    import zipfile
+
+    from layoutdetr_tpu_torch import generate
+    from layoutdetr_tpu_torch import train as train_cli
+    from layoutdetr_tpu_torch.config import GeneratorConfig
+    from layoutdetr_tpu_torch.data.synthetic import make_synthetic_zip
+    from layoutdetr_tpu_torch.training import train_loop
+
+    with tempfile.TemporaryDirectory() as tmp:
+        zip_path = make_synthetic_zip(os.path.join(tmp, "train.zip"), num_samples=64, image_size=256,
+                                      max_elements=9, seed=args.seed, structured=True)
+        common = ["--data", zip_path, "--batch", str(args.batch), "--bf16", "--max-text-length",
+                  "auto", "--aug", "ada", "--gamma", "1", "--pl-weight", "2", "--metrics", "none",
+                  "--seed", str(args.seed), "--snap", "1"]
+        out = os.path.join(tmp, "runs")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters(attention, bias_act_mod)
+        t0 = time.perf_counter()
+        state = train_cli.main(["--outdir", out, *common, "--device-feed", "on",
+                                "--max-steps", str(RUN_STEPS)])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        n_attn, n_fwd, n_bwd = counters(attention, bias_act_mod)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        (run_name,) = os.listdir(out)
+        run_dir = os.path.join(out, run_name)
+        records, ticks = read_run(run_dir)
+
+        # the launches: 12 attention a main and a reg step, 12 a summary
+        # forward (G, D) and an image snapshot (one a tick); 48 + 48 bias_act
+        # a main step, 48 forward in D's summary, none in a reg step
+        g_regs = len(range(0, RUN_STEPS, G_REG))
+        d_regs = len(range(0, RUN_STEPS, D_REG))
+        want = (12 * (RUN_STEPS + g_regs + d_regs) + 12 * 2 + 12 * len(ticks),
+                48 * RUN_STEPS + 48, 48 * RUN_STEPS)
+        if (n_attn, n_fwd, n_bwd) != want:
+            raise AssertionError(f"training run: launches (attention, bias_act fwd, bwd) "
+                                 f"{(n_attn, n_fwd, n_bwd)}, expected {want}")
+        check_ticks(records, ticks, RUN_STEPS, "training run")
+        if (sum(r.get("Loss/G/reg", {}).get("num", 0) for r in records) != g_regs
+                or sum(r.get("Loss/D/reg", {}).get("num", 0) for r in records) != d_regs):
+            raise AssertionError("training run: reg-step stats do not match the schedule")
+        ada_updates = records[-1]["ada_updates"]
+        if ada_updates != len(range(ADA_INTERVAL, RUN_STEPS, ADA_INTERVAL)):
+            raise AssertionError(f"ADA's p was updated {ada_updates} times")
+        snap = os.path.join(run_dir, f"network-snapshot-{RUN_STEPS * args.batch // 1000:06d}.pt")
+        if not (os.path.exists(snap) and os.path.exists(snap + ".gcfg.json")):
+            raise AssertionError(f"no snapshot {snap} with its .gcfg.json in {os.listdir(run_dir)}")
+        if state.step != RUN_STEPS:
+            raise AssertionError(f"state.step {state.step}")
+
+        # trainable parameters moved, frozen ones did not: against the same
+        # seeded init (G's frozen encoder copied into D, as the loop does)
+        with open(snap + ".gcfg.json") as f:
+            gcfg = GeneratorConfig.from_dict(json.load(f))
+        G0, D0 = train_loop.init_models(gcfg, "cuda", torch.bfloat16, args.seed)
+        D0.text_encoder.load_state_dict(G0.text_encoder.state_dict())
+        frozen, moved, unmoved = 0, 0, []
+        for tag, mod, mod0 in (("G", state.G, G0), ("D", state.D, D0)):
+            init = dict(mod0.named_parameters())
+            for name, p in mod.named_parameters():
+                same = torch.equal(p.detach(), init[name].detach())
+                if not p.requires_grad:
+                    frozen += 1
+                    if not same:
+                        raise AssertionError(f"frozen {tag}.{name} moved")
+                elif not same:
+                    moved += 1
+                elif ".crossattention." not in name and not name.endswith(".key.bias"):
+                    unmoved.append(f"{tag}.{name}")
+        if unmoved or not frozen:
+            raise AssertionError(f"trainable parameters that did not move: {unmoved[:8]}")
+        del G0, D0
+        run_main_s = sum(r["main_step_s"] for r in records)
+        run_reg_s = sum(r["reg_step_s"] for r in records)
+        last = records[-1]  # tick 1: steps 1-16, after the first step's warm-up
+        rec = dict(steps=RUN_STEPS, g_reg_steps=g_regs, d_reg_steps=d_regs, ticks=len(ticks),
+                   wall_s=wall_s, sec_per_kimg=last["sec_per_kimg"],
+                   sec_per_kimg_ticks=[r["sec_per_kimg"] for r in records],
+                   main_step_s=run_main_s, reg_step_s=run_reg_s,
+                   reg_share=run_reg_s / (run_main_s + run_reg_s),
+                   reg_share_last_tick=last["reg_step_s"] / (last["main_step_s"] + last["reg_step_s"]),
+                   peak_memory_gb=peak_gb, devmem_peak_gb=max(r["devmem_peak_gb"] for r in records),
+                   launches=dict(fused_attention=n_attn, bias_act=n_fwd, bias_act_backward=n_bwd),
+                   launches_expected=dict(zip(("fused_attention", "bias_act", "bias_act_backward"),
+                                              want)),
+                   ada_updates=ada_updates, augment_p=last["augment_p"],
+                   trainable_moved=moved, frozen_unchanged=frozen, T=gcfg.max_text_length)
+        del state
+        torch.cuda.empty_cache()
+        log(f"training run bf16 batch {args.batch} T={gcfg.max_text_length} (auto), {RUN_STEPS} "
+            f"steps + {g_regs} path-length + {d_regs} R1 steps: {rec['sec_per_kimg']:.2f} sec/kimg "
+            f"(tick 1, steps 1-16), reg steps {100 * rec['reg_share']:.1f}% of the steps' device "
+            f"time ({100 * rec['reg_share_last_tick']:.1f}% in tick 1), peak memory "
+            f"{peak_gb:.2f} GiB, wall {wall_s:.1f} s  [{card}]")
+        log(f"  launches: fused_attention {n_attn}, bias_act {n_fwd} forward / {n_bwd} backward "
+            f"(expected {want}); ADA p updated {ada_updates} times (p = {rec['augment_p']:.5f}); "
+            f"{moved} trainable tensors moved, {frozen} frozen unchanged")
+
+        # resume through the host loader, the restored state checked bit for bit
+        restored: list = []
+        out2 = os.path.join(tmp, "resumed")
+        with checked_restore(torch, train_loop, restored):
+            state = train_cli.main(["--outdir", out2, *common, "--device-feed", "off", "--workers", "2",
+                                    "--max-steps", str(RESUME_STEPS), "--resume", snap])
+        records2, ticks2 = read_run(os.path.join(out2, os.listdir(out2)[0]))
+        check_ticks(records2, ticks2, RESUME_STEPS, "resumed run")
+        if restored != [RUN_STEPS] or state.step != RUN_STEPS + RESUME_STEPS:
+            raise AssertionError(f"resume: restored at step {restored}, ended at {state.step}")
+        rec["resume"] = dict(restored_step=restored[0], bit_exact=True, steps=RESUME_STEPS,
+                             sec_per_kimg=records2[-1]["sec_per_kimg"])
+        log(f"resume from {os.path.basename(snap)} (host loader, 2 workers): restored state equal to "
+            f"the snapshot bit for bit at step {restored[0]}, then {RESUME_STEPS} steps")
+        del state
+        torch.cuda.empty_cache()
+
+        # one request served from the snapshot (its G_ema)
+        bg = os.path.join(tmp, "bg.png")
+        with zipfile.ZipFile(zip_path) as zf, open(bg, "wb") as f:
+            f.write(zf.read("00000000_background_orig.png"))
+        zero_counters(attention, bias_act_mod)
+        (layout,) = generate.main(["--ckpt", snap, "--bg", bg, "--strings", "summer sale|shop now",
+                                   "--string-labels", "header|button", "--device", "cuda",
+                                   "--outfile", os.path.join(tmp, "served", "banner")])
+        served = attention.LAUNCHES["fused_attention"]
+        if (served != 12 or not np.isfinite(layout.bbox).all()
+                or not ((layout.raw > 0) & (layout.raw < 1)).all()):
+            raise AssertionError(f"serving from the snapshot: {served} launches, {layout.raw}")
+        rec["served"] = dict(bbox=layout.bbox[layout.mask].tolist(), launches=served)
+        log(f"served from the snapshot (generate --ckpt, G_ema): boxes "
+            f"{np.round(layout.bbox[layout.mask], 4).tolist()}, {served} attention launches")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1006,9 +1243,15 @@ def main() -> int:
 
     # 8. step correctness
     correctness = step_correctness_phase(torch, np, cfg, states, args, attention, bias_act_mod)
+    del states
+    torch.cuda.empty_cache()
 
-    kernels = kernel_records(attn_cases, bias_cases, serve_launches, train)
+    # 9. the training run, slice 3's main path
+    run = training_run_phase(torch, np, args, card, attention, bias_act_mod)
+
+    kernels = kernel_records(attn_cases, bias_cases, serve_launches, train, run)
     log(json.dumps({"serving": serving, "train": train, "step_correctness": correctness,
+                    "training_run": run,
                     "model_max_abs": err, "model_bf16_max_abs": err_bf16,
                     "model_bf16_vs_fp32_max_abs": err_bf16_fp32, "cpu_max_abs": err_cpu,
                     "attention_cases": attn_cases, "bias_act_cases": bias_cases,
@@ -1104,24 +1347,31 @@ def largest_lrelu(cases: list) -> dict:
     return out
 
 
-def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list) -> list:
+def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run: dict) -> list:
     """The kernels line: each kernel at its representative case (fp32,
     T=256 for attention; one fp32 step's 48 bias_act calls summed), with
-    the launches of the main path that runs it."""
+    the launches of each main path that runs it (``launches_by_path``) and
+    their sum. The training run's attention launches, of both forms (12 a
+    main step with dropout, the rest deterministic), count under
+    fused_attention: the counter counts the kernel."""
     def attn(rate):
         return next(c for c in attn_cases if c["dtype"] == "float32" and c["shape"][2] == 256
                     and c["dropout_rate"] == rate)
 
     train_launches = {k: sum(r["launches"][k] for r in train)
                       for k in ("fused_attention", "bias_act", "bias_act_backward")}
+    by_path = {"fused_attention": dict(serving=serve_launches,
+                                       training_run=run["launches"]["fused_attention"]),
+               "fused_attention_dropout": dict(train_step=train_launches["fused_attention"])}
+    for k in ("bias_act", "bias_act_backward"):
+        by_path[k] = dict(train_step=train_launches[k], training_run=run["launches"][k])
     src = "layoutdetr_tpu_torch/ops/csrc/"
     out = []
-    for name, rate, launches in (("fused_attention", 0.0, serve_launches),
-                                 ("fused_attention_dropout", DROPOUT,
-                                  train_launches["fused_attention"])):
+    for name, rate in (("fused_attention", 0.0), ("fused_attention_dropout", DROPOUT)):
         c = attn(rate)
         out.append(dict(name=name, route="cuda", source=src + "attention.cu",
-                        replaces="layoutdetr_tpu/ops/attention.py:98", launches=launches,
+                        replaces="layoutdetr_tpu/ops/attention.py:98",
+                        launches=sum(by_path[name].values()), launches_by_path=by_path[name],
                         max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
                         bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=c["library_ms"],
                         cases=[x for x in attn_cases if x["dropout_rate"] == rate]))
@@ -1129,7 +1379,8 @@ def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list) -> 
     tot16 = per_step_totals(bias_cases, "bfloat16")
     for name, key in (("bias_act", "fwd"), ("bias_act_backward", "bwd")):
         out.append(dict(name=name, route="cuda", source=src + "bias_act.cu",
-                        replaces="layoutdetr_tpu/ops/bias_act.py:145", launches=train_launches[name],
+                        replaces="layoutdetr_tpu/ops/bias_act.py:145",
+                        launches=sum(by_path[name].values()), launches_by_path=by_path[name],
                         max_abs_err=tot[f"max_rel_err_{key}"], ms=tot[f"{key}_ms"],
                         plain_ms=tot[f"plain_{key}_ms"], bound_ms=tot[f"{key}_bound_ms"],
                         bound_by="bytes", library_ms=tot[f"library_{key}_ms"],

@@ -7,8 +7,12 @@ device and post-processed on the host. Request ``i`` draws its noise and
 its post-processing choice from ``seed + i``, so a batch gives each
 request what ``generate.py --seed <seed + i>`` gives it alone.
 
-Checkpoints of the port are a ``torch.save`` of the Generator's
-``state_dict`` plus its config as JSON beside it (``<ckpt>.json``).
+``--ckpt`` takes the three checkpoint forms of
+``utils.checkpoint.load_generator_checkpoint``: a training snapshot
+(``network-snapshot-*.pt``, its G_ema, config in ``<ckpt>.gcfg.json``), a
+``save_generator`` file (a ``torch.save`` of the Generator's
+``state_dict``, config in ``<ckpt>.json``) and a reference ``.pkl``
+snapshot.
 
 CLI (bbox overlay PNG when PIL is present; no browser rendering):
 
@@ -38,6 +42,7 @@ from layoutdetr_tpu_torch.serving.postprocess import (
     jitter,
     save_bboxes_with_background,
 )
+from layoutdetr_tpu_torch.utils.checkpoint import load_generator_checkpoint as load_generator
 
 MAX_N = 9
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -172,18 +177,10 @@ def save_generator(model: Generator, path: str) -> None:
         json.dump(model.cfg.to_dict(), f)
 
 
-def load_generator(path: str, device: Union[str, torch.device] = "cuda",
-                   dtype: torch.dtype = torch.float32) -> Generator:
-    with open(path + ".json") as f:
-        cfg = GeneratorConfig.from_dict(json.load(f))
-    model = Generator(cfg, dtype=dtype)
-    model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True), strict=True)
-    return model.to(device).eval()
-
-
 def main(argv: Optional[Sequence[str]] = None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--ckpt", required=True, help="port checkpoint (torch.save'd state dict)")
+    ap.add_argument("--ckpt", required=True,
+                    help="a training snapshot (.pt), a save_generator file or a reference .pkl")
     ap.add_argument("--bg", required=True, help="path of a background image")
     ap.add_argument("--bg-preprocessing", default="256",
                     choices=["256", "128", "blur", "jpeg", "rec", "3x_mask", "edge", "none"])

@@ -13,8 +13,17 @@ Dropout: every forward draws its own masks, as ``_fold_rngs`` gives each
 JAX forward its own stream. The loss functions take a CPU
 ``torch.Generator`` and derive from it, on the host, one device
 generator per forward (``fork_generator``). ``batch["mask"]`` is True
-for valid elements. ``g_pl_loss``, ``d_r1_loss`` and the ADA augmentation
-are not ported yet.
+for valid elements.
+
+ADA: when ``batch["aug_p"]`` (a float) is present, every input of D's
+critic in Gmain and Dmain is augmented with draws of its own from the
+host generator (``_augmented``); the reconstruction target stays the
+clean background.
+
+The lazy regularizers: ``g_pl_loss`` (path-length penalty on the
+z -> bbox Jacobian, a double backward through G) and ``d_r1_loss`` (the
+gradient penalty on D's logits w.r.t. the bbox input, a double backward
+through D's critics at ``reconst=False``, which never reach ``bias_act``).
 """
 
 from __future__ import annotations
@@ -31,6 +40,12 @@ from layoutdetr_tpu_torch.metrics.layout_metrics import (
     generalized_iou_loss,
     masked_cross_entropy,
     masked_mse,
+)
+from layoutdetr_tpu_torch.training.augment import (
+    CONDITIONAL_SAFE,
+    AugmentConfig,
+    apply_augment,
+    draw_augment_params,
 )
 
 
@@ -76,8 +91,22 @@ def _model_inputs(batch: Dict[str, torch.Tensor], text_feat_key: Optional[str] =
     return out
 
 
+def _augmented(inputs: dict, batch: dict, generator: Optional[torch.Generator],
+               aug_cfg: Optional[AugmentConfig] = None) -> dict:
+    """``inputs`` with the background ADA-augmented at ``batch["aug_p"]``,
+    drawn from the host ``generator`` (loss.py:82-102); as they are without
+    ``aug_p`` or a generator. ``aug_cfg`` defaults to CONDITIONAL_SAFE."""
+    if "aug_p" not in batch or generator is None:
+        return inputs
+    cfg = CONDITIONAL_SAFE if aug_cfg is None else aug_cfg
+    bg = inputs["background"]
+    params = draw_augment_params(bg.shape[0], batch["aug_p"], generator, cfg)
+    return dict(inputs, background=apply_augment(bg, params, cfg))
+
+
 def g_main_loss(G, D, batch, z, w: LossWeights, deterministic: bool = False,
-                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, dict]:
+                generator: Optional[torch.Generator] = None,
+                aug_cfg: Optional[AugmentConfig] = None) -> Tuple[torch.Tensor, dict]:
     """Gmain phase (loss.py:84-116): adversarial + reconstruction terms."""
     dev = z.device
     gen_g = None if deterministic else fork_generator(generator, dev)
@@ -86,8 +115,9 @@ def g_main_loss(G, D, batch, z, w: LossWeights, deterministic: bool = False,
     bbox_fake, loss_z, logit_cls, loss_lm, loss_text_len = G(
         z, bbox_real=batch["bboxes"], reconst=True, deterministic=deterministic,
         generator=gen_g, **_model_inputs(batch, "text_feat_g"))
+    d_inputs = _augmented(_model_inputs(batch, "text_feat_d"), batch, generator, aug_cfg)
     gen_logits, gen_logits_uncond = D(bbox_fake, deterministic=deterministic, generator=gen_d,
-                                      **_model_inputs(batch, "text_feat_d"))
+                                      **d_inputs)
 
     loss_Ggen = F.softplus(-gen_logits).mean()
     loss_Ggen_uncond = F.softplus(-gen_logits_uncond).mean()
@@ -120,7 +150,8 @@ def g_main_loss(G, D, batch, z, w: LossWeights, deterministic: bool = False,
 
 
 def d_main_loss(G, D, batch, z, w: LossWeights, deterministic: bool = False,
-                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, dict]:
+                generator: Optional[torch.Generator] = None,
+                aug_cfg: Optional[AugmentConfig] = None) -> Tuple[torch.Tensor, dict]:
     """Dmain phase = Dgen (loss.py:146-157) + Dreal (loss.py:161-206)."""
     dev = z.device
     gen_g, gen_dfake, gen_dreal = (None if deterministic else fork_generator(generator, dev)
@@ -130,15 +161,17 @@ def d_main_loss(G, D, batch, z, w: LossWeights, deterministic: bool = False,
         bbox_fake = G(z, bbox_real=batch["bboxes"], reconst=False, deterministic=deterministic,
                       generator=gen_g, **_model_inputs(batch, "text_feat_g"))
     d_inputs = _model_inputs(batch, "text_feat_d")
-    gen_logits, gen_logits_uncond = D(bbox_fake, deterministic=deterministic,
-                                      generator=gen_dfake, **d_inputs)
+    gen_logits, gen_logits_uncond = D(bbox_fake, deterministic=deterministic, generator=gen_dfake,
+                                      **_augmented(d_inputs, batch, generator, aug_cfg))
     loss_Dgen = F.softplus(gen_logits).mean()
     loss_Dgen_uncond = F.softplus(gen_logits_uncond).mean()
 
+    # the critic's input is augmented; the reconstruction target stays the
+    # clean background (loss.py:185-187)
     (real_logits, real_logits_uncond, bbox_rec, bbox_cls_logits, loss_lm, loss_text_len, bg_rec,
      bbox_rec_uncond, bbox_cls_logits_uncond) = D(
         batch["bboxes"], reconst=True, deterministic=deterministic, generator=gen_dreal,
-        **d_inputs)
+        **_augmented(d_inputs, batch, generator, aug_cfg))
     loss_Dreal = F.softplus(-real_logits).mean()
     loss_Dreal_uncond = F.softplus(-real_logits_uncond).mean()
     loss_bbox_rec = masked_mse(bbox_rec, batch["bboxes"], valid) * w.Dreal_bbox_rec_weight
@@ -169,3 +202,58 @@ def d_main_loss(G, D, batch, z, w: LossWeights, deterministic: bool = False,
         "Loss/D/loss_Dreal_bbox_cls_uncond": loss_cls_u,
     }
     return total, stats
+
+
+def g_pl_loss(G, batch, w: LossWeights, pl_mean: torch.Tensor, z: Optional[torch.Tensor] = None,
+              pl_noise: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None,
+              text_feat: Optional[torch.Tensor] = None, pl_decay: float = 0.01,
+              pl_batch_shrink: int = 2) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """Gpl, the path-length penalty on the z -> bbox Jacobian (loss.py:225-250;
+    reference loss.py:119-142), on the first b / ``pl_batch_shrink``
+    samples, deterministic. ``z`` ([>= shrink, N, z_dim]) and ``pl_noise``
+    (standard normal, [shrink, N, 4]) are drawn from ``generator`` when not
+    given; ``text_feat`` holds the shrunk batch's hoisted text features
+    (G's own encoder runs without it). Returns (loss, new pl_mean
+    (detached), stats); the loss keeps its graph to G's parameters."""
+    inputs = _model_inputs(batch)
+    b = batch["labels"].shape[0]
+    shrink = max(b // pl_batch_shrink, 1)
+    dev = batch["labels"].device
+    inputs = {k: v[:shrink] for k, v in inputs.items()}
+    if text_feat is not None:
+        inputs["text_feat"] = text_feat
+    n = batch["labels"].shape[1]
+    if z is None:
+        z = torch.randn(shrink, n, G.cfg.z_dim, device=dev, generator=fork_generator(generator, dev))
+    z_s = z[:shrink].detach().requires_grad_(True)
+    bbox_fake = G(z_s, bbox_real=batch["bboxes"][:shrink], reconst=False, deterministic=True,
+                  **inputs)
+    if pl_noise is None:
+        pl_noise = torch.randn(bbox_fake.shape, device=dev, generator=fork_generator(generator, dev))
+    pl_noise = pl_noise / bbox_fake.shape[2]
+    (pl_grads,) = torch.autograd.grad((bbox_fake * pl_noise).sum(), z_s, create_graph=True)
+    pl_lengths = pl_grads.square().sum(dim=(1, 2)).sqrt()
+    new_pl_mean = pl_mean + pl_decay * (pl_lengths.mean() - pl_mean)
+    pl_penalty = (pl_lengths - new_pl_mean).square()
+    loss = (pl_penalty * w.pl_weight).mean()
+    return loss, new_pl_mean.detach(), {"Loss/pl_penalty": pl_penalty.mean().detach(),
+                                        "Loss/G/reg": loss.detach()}
+
+
+def d_r1_loss(D, batch, w: LossWeights,
+              text_feat: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
+    """Dr1, the gradient penalty on D's logits w.r.t. the bbox input
+    (loss.py:253-267; reference loss.py:209-215), deterministic, at
+    ``reconst=False``. ``text_feat``: the hoisted text features (D's own
+    encoder runs without them). The loss keeps its graph to D's
+    parameters."""
+    inputs = _model_inputs(batch)
+    if text_feat is not None:
+        inputs["text_feat"] = text_feat
+    bbox = batch["bboxes"].detach().requires_grad_(True)
+    logits, _ = D(bbox, deterministic=True, **inputs)
+    (r1_grads,) = torch.autograd.grad(logits.sum(), bbox, create_graph=True)
+    r1_penalty = r1_grads.square().sum(dim=(1, 2))
+    loss = (r1_penalty * (w.r1_gamma / 2)).mean()
+    return loss, {"Loss/r1_penalty": r1_penalty.mean().detach(), "Loss/D/reg": loss.detach()}

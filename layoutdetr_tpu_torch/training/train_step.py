@@ -1,14 +1,16 @@
-"""The GAN train step: hoisted text pass, Gmain -> Adam -> Dmain -> Adam -> EMA.
+"""The GAN train steps: the main step (hoisted text pass, Gmain -> Adam ->
+Dmain -> Adam -> EMA) and the lazy-regularization steps.
 
-Counterpart of ``layoutdetr_tpu/training/train_step.py:39-242``
-(reference training_loop.py:274-332). One call of the step:
+Counterpart of ``layoutdetr_tpu/training/train_step.py`` (reference
+training_loop.py:274-332). One call of the main step:
 
 1. the frozen text encoder's CLS features, computed once without
    gradients by G's encoder (``make_text_feature_fn``: the fused attention
    kernel with its dropout form) and fed to G and D alike: JAX's
    ``text_feature_fn`` with ``share_text_encoder=True``, which bench.py
-   and the training loop run (G's and D's frozen encoders hold the same
-   pretrained weights; D's own is not run by the step);
+   and the training loop run when G's and D's frozen encoders hold the
+   same weights (D's own is then not run by the step; otherwise it makes
+   a second pass);
 2. Gmain: ``g_main_loss`` differentiated with respect to G's trainable
    parameters only; the gradients are sanitized (``_sanitize``) and G's
    Adam steps;
@@ -29,10 +31,22 @@ optimizers are the state), where JAX returns a new state; the step
 returns the stats as 0-dim tensors on the device.
 
 Randomness comes from one CPU ``torch.Generator`` passed to the step:
-z, the dropout masks of every forward and the attention seeds are drawn
-from it (device generators are seeded from host draws), so a step needs
-no device sync. ``z`` lets a caller hand in (z for Gmain, z for Dmain),
-e.g. the ones the JAX step draws; the main path leaves it None.
+z, the dropout masks of every forward, the attention seeds and the ADA
+draws come from it (device generators are seeded from host draws), so a
+step needs no device sync. ``z`` lets a caller hand in (z for Gmain, z
+for Dmain), e.g. the ones the JAX step draws; the main path leaves it
+None. A batch may carry ``aug_p`` (a float): D's critic inputs are then
+ADA-augmented (``loss._augmented``).
+
+The lazy-regularization steps (``make_g_reg_step``, ``make_d_reg_step``;
+JAX's :245-289) run on their intervals with the loss scaled by the
+interval. Each first computes the text features of its batch once,
+deterministic and without gradients (G's encoder for the path-length
+step, D's for R1): the features depend neither on z nor on the bbox, and
+the pass runs the fused attention kernel, where a grad-enabled encoder
+would run the plain version. Then the penalty's double backward, the
+sanitized gradients (zeros where a trainable parameter takes no part, as
+optax sees them) and the phase's Adam.
 """
 
 from __future__ import annotations
@@ -46,11 +60,14 @@ from torch import nn
 from torch.profiler import record_function
 
 from layoutdetr_tpu_torch.models.generator import make_text_feature_fn
+from layoutdetr_tpu_torch.training.augment import AugmentConfig
 from layoutdetr_tpu_torch.training.loss import (
     LossWeights,
     d_main_loss,
+    d_r1_loss,
     fork_generator,
     g_main_loss,
+    g_pl_loss,
 )
 
 
@@ -61,13 +78,15 @@ class GANTrainState:
     G_ema: nn.Module
     opt_g: torch.optim.Optimizer
     opt_d: torch.optim.Optimizer
+    pl_mean: torch.Tensor  # 0-dim, on the models' device
     step: int = 0
 
     @classmethod
     def create(cls, G: nn.Module, D: nn.Module, opt_g: torch.optim.Optimizer,
                opt_d: torch.optim.Optimizer) -> "GANTrainState":
         G_ema = copy.deepcopy(G).eval().requires_grad_(False)
-        return cls(G=G, D=D, G_ema=G_ema, opt_g=opt_g, opt_d=opt_d)
+        pl_mean = torch.zeros((), device=next(G.parameters()).device)
+        return cls(G=G, D=D, G_ema=G_ema, opt_g=opt_g, opt_d=opt_d, pl_mean=pl_mean)
 
 
 def _sanitize(grads: Sequence[Optional[torch.Tensor]]) -> None:
@@ -98,7 +117,8 @@ def _accum_phase(loss_fn: Callable, params: list, batch: Dict[str, torch.Tensor]
     grads: list = [None] * len(params)
     stats: dict = {}
     for i in range(grad_accum):
-        mb = {k: v[i * mb_size:(i + 1) * mb_size] for k, v in batch.items()}
+        mb = {k: v[i * mb_size:(i + 1) * mb_size] if isinstance(v, torch.Tensor) else v
+              for k, v in batch.items()}
         total, mb_stats = loss_fn(mb, zs[i], generator)
         mb_grads = torch.autograd.grad(total, params, allow_unused=True)
         for j, g in enumerate(mb_grads):
@@ -123,12 +143,16 @@ def _apply(opt: torch.optim.Optimizer, params: list, grads: list) -> None:
 def make_train_step(weights: LossWeights = LossWeights(), batch_size: int = 16,
                     ema_kimg: Optional[float] = None, ema_rampup: Optional[float] = 0.05,
                     z_dim: int = 4, max_elements: int = 9, deterministic: bool = False,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, aug_cfg: Optional[AugmentConfig] = None,
+                    share_text_encoder: bool = True):
     """Returns ``step(state, batch, generator, z=None) -> stats``.
 
     ``generator``: a CPU torch.Generator. ``batch``: tensors on the models'
     device, keys bboxes, labels, text_ids, text_mask, text_len, mask
-    (True = valid), background."""
+    (True = valid), background; optionally ``aug_p`` (float), the ADA
+    probability, with ``aug_cfg`` its groups (default CONDITIONAL_SAFE).
+    ``share_text_encoder=False`` runs D's own frozen encoder for D's text
+    features (G's and D's encoders hold different weights)."""
     if ema_kimg is None:
         ema_kimg = batch_size * 10 / 32  # train.py:249
 
@@ -142,7 +166,9 @@ def make_train_step(weights: LossWeights = LossWeights(), batch_size: int = 16,
         with record_function("train_step.text"):
             text_feat = make_text_feature_fn(state.G.text_encoder)(
                 batch["text_ids"], batch["text_mask"], deterministic, generator)
-        batch = dict(batch, text_feat_g=text_feat, text_feat_d=text_feat)
+            text_feat_d = text_feat if share_text_encoder else make_text_feature_fn(
+                state.D.text_encoder)(batch["text_ids"], batch["text_mask"], deterministic, generator)
+        batch = dict(batch, text_feat_g=text_feat, text_feat_d=text_feat_d)
 
         def draw_z():
             zgen = fork_generator(generator, dev)
@@ -156,7 +182,7 @@ def make_train_step(weights: LossWeights = LossWeights(), batch_size: int = 16,
             params_g = _trainable(state.G)
             g_grads, g_stats = _accum_phase(
                 lambda mb, zz, gen: g_main_loss(state.G, state.D, mb, zz, weights, deterministic,
-                                                gen),
+                                                gen, aug_cfg),
                 params_g, batch, grad_accum, split_z(z_g), generator)
         with record_function("train_step.G_adam"):
             _apply(state.opt_g, params_g, g_grads)
@@ -167,7 +193,7 @@ def make_train_step(weights: LossWeights = LossWeights(), batch_size: int = 16,
             params_d = _trainable(state.D)
             d_grads, d_stats = _accum_phase(
                 lambda mb, zz, gen: d_main_loss(state.G, state.D, mb, zz, weights, deterministic,
-                                                gen),
+                                                gen, aug_cfg),
                 params_d, batch, grad_accum, split_z(z_d), generator)
         with record_function("train_step.D_adam"):
             _apply(state.opt_d, params_d, d_grads)
@@ -184,5 +210,57 @@ def make_train_step(weights: LossWeights = LossWeights(), batch_size: int = 16,
             torch._foreach_add_(ema, cur)
         state.step += 1
         return {**g_stats, **d_stats}
+
+    return step
+
+
+def _reg_update(opt: torch.optim.Optimizer, module: nn.Module, loss: torch.Tensor) -> None:
+    """Adam on the gradients of ``loss`` w.r.t. ``module``'s trainable
+    parameters, sanitized, zeros where a parameter takes no part (optax
+    counts such a step and decays its moments; torch's Adam would skip a
+    parameter without a gradient)."""
+    params = _trainable(module)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    _apply(opt, params, [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])
+
+
+def make_g_reg_step(weights: LossWeights, z_dim: int = 4, max_elements: int = 9,
+                    gain: float = 4.0, pl_batch_shrink: int = 2):
+    """The path-length step (JAX's :245-269): returns ``step(state, batch,
+    generator, z=None, pl_noise=None) -> stats``, run every G reg interval
+    batches with the loss scaled by ``gain`` = the interval."""
+
+    def step(state: GANTrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator,
+             z: Optional[torch.Tensor] = None, pl_noise: Optional[torch.Tensor] = None) -> dict:
+        shrink = max(batch["labels"].shape[0] // pl_batch_shrink, 1)
+        with record_function("g_reg.text"):
+            text_feat = make_text_feature_fn(state.G.text_encoder)(
+                batch["text_ids"][:shrink], batch["text_mask"][:shrink], True)
+        with record_function("g_reg.pl"):
+            loss, pl_mean, stats = g_pl_loss(state.G, batch, weights, state.pl_mean, z, pl_noise,
+                                             generator, text_feat,
+                                             pl_batch_shrink=pl_batch_shrink)
+            _reg_update(state.opt_g, state.G, loss * gain)
+        state.pl_mean = pl_mean
+        return stats
+
+    return step
+
+
+def make_d_reg_step(weights: LossWeights, gain: float = 16.0):
+    """The R1 step (JAX's :272-289): returns ``step(state, batch,
+    generator=None) -> stats``, run every D reg interval batches with the
+    loss scaled by ``gain`` = the interval. Deterministic: draws nothing."""
+
+    def step(state: GANTrainState, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None) -> dict:
+        del generator
+        with record_function("d_reg.text"):
+            text_feat = make_text_feature_fn(state.D.text_encoder)(
+                batch["text_ids"], batch["text_mask"], True)
+        with record_function("d_reg.r1"):
+            loss, stats = d_r1_loss(state.D, batch, weights, text_feat)
+            _reg_update(state.opt_d, state.D, loss * gain)
+        return stats
 
     return step
