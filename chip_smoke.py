@@ -22,10 +22,14 @@ Phases (any failure ends the run with a non-zero exit and no result):
 3. kernels: each kernel vs its plain PyTorch version at the main paths'
    shapes, with its time, the plain version's, one PyTorch library call's
    and the card's bound:
-   - fused_attention [B*9, 4, T, 192], T in {256, 64}, fp32 and bf16, key
-     padding down to length 2; deterministic, and with dropout 0.1 against
-     the plain version with the same Philox keep mask; each case's share
-     of its bound and its time over sdpa's;
+   - fused_attention [rows, 4, T, 192] at every shape of the main paths:
+     serving and the train step (rows B*9, T in {256, 64}) and the
+     training run at its auto bucket T (16 on its zip, a partial 64-key
+     chunk): rows B*9 (main and R1 steps), (B/2)*9 (path length), 9
+     (module summaries, the served request) and 36 (image snapshot); fp32
+     and bf16, key padding down to length 2; deterministic, and with
+     dropout 0.1 against the plain version with the same Philox keep mask;
+     each case's share of its bound and its time over sdpa's;
    - bias_act forward and backward at every distinct shape of the train
      step's 48 calls (D's bg_decoder at batch 16), fp32 and bf16 (b in
      x's dtype, as the models pass it; a bf16 call also with b in fp32,
@@ -63,17 +67,21 @@ Phases (any failure ends the run with a non-zero exit and no result):
    the device feed, a snapshot each tick, 17 steps: 17 main steps, 5
    path-length steps (batches 0, 4, 8, 12, 16) and 2 R1 steps (0, 16), with
    the launch counts set to 0 before and read after: 12 attention launches
-   a main and a reg step, plus 12 a G and a D forward of the startup module
-   summaries and 12 an image snapshot (one a tick); 48 bias_act forward and
-   48 backward launches a main step, plus 48 forward in D's summary, none
-   in a reg step. Checks: finite tick lines and stats.jsonl, every step's
-   stats present, ADA's p updated 4 times, the snapshot and its .gcfg.json,
+   with dropout a main step; 12 deterministic ones a reg step, a G and a D
+   forward of the startup module summaries and an image snapshot (one a
+   tick); 48 bias_act forward and 48 backward launches a main step, plus 48
+   forward in D's summary, none in a reg step. Checks: finite tick lines
+   and stats.jsonl, every step's stats present, ADA's p updated 4 times,
+   the snapshot and its .gcfg.json, the run's T the one phase 3 checked,
    trainable parameters moved and frozen ones not; then a resume from the
    snapshot through the host loader (--device-feed off --workers 2
    --max-steps 2), whose restored state must equal the snapshot bit for
-   bit, and one request served from the snapshot by ``generate --ckpt``
-   (G_ema). sec/kimg, the reg steps' share of the steps' device time and
-   peak memory are printed beside the launch counts.
+   bit, one request served from the snapshot by ``generate --ckpt``
+   (G_ema), and ADA's transform on the card at p = 1 on a device-fed batch
+   against the CPU with the same draws and noise (CONDITIONAL_SAFE and the
+   full pipe; the run's p stays near 0 with a random D). sec/kimg, the reg
+   steps' share of the step time (the stream span between CUDA events
+   around each step) and peak memory are printed beside the launch counts.
 
 The last three lines of standard output are the kernels JSON, the card
 (nvidia-smi name, power limit) and ``{"ok": true, "device": {...}}``.
@@ -90,6 +98,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -140,6 +149,9 @@ STEP_LOSS_TOL = 1e-4
 STEP_FLIP_SHARE = 1e-2
 LR_EFF = {"G": 1e-5 * 4 / 5, "D": 1e-5 * 16 / 17}
 DROPOUT = 0.1
+# The keep mask's kept fraction: within 1e-3 of 1 - rate, or 5 binomial
+# standard deviations where the mask has too few entries for that (at
+# T=16 one sd is 7.8e-4 for 144 rows, 3.1e-3 for 9).
 KEPT_TOL = 1e-3
 WORDS = ("summer sale up to 50% off shop now free shipping new arrivals limited time only "
          "sign up today exclusive deals best price learn more the ultimate collection").split()
@@ -182,20 +194,35 @@ def bound(flops: float, nbytes: float, dtype_name: str):
 # 3. kernels vs plain
 # ---------------------------------------------------------------------------
 
-def attention_phase(torch, attention, seed: int, batch: int) -> list:
-    """Kernel vs plain at the main paths' shapes, without and with dropout;
-    returns one record per case."""
+def serving_attention_shapes(batch: int) -> list:
+    """(rows, T) of the attention calls of serving and the train step:
+    batch * 9 texts at T=256 and at the auto bucket 64."""
+    return [(batch * 9, 256), (batch * 9, 64)]
+
+
+def run_attention_shapes(batch: int, t: int) -> list:
+    """(rows, T) of every attention call of the training run (phase 9) at
+    its bucket T: the main and R1 steps (batch * 9 texts), the
+    path-length step (batch // 2 samples), the module summaries and the
+    request served from the snapshot (1 sample), and the image snapshot
+    (4 samples)."""
+    return [(batch * 9, t), (max(batch // 2, 1) * 9, t), (9, t), (4 * 9, t)]
+
+
+def attention_phase(torch, attention, seed: int, shapes: list) -> list:
+    """Kernel vs plain at each (rows, T) of ``shapes``, [rows, 4, T, 192],
+    fp32 and bf16, without and with dropout; one record per case."""
     import torch.nn.functional as F
 
-    b, h, d = batch * 9, 4, 192
+    h, d = 4, 192
     scale = d ** -0.5
     cases = []
     for rate in (0.0, DROPOUT):
         for dtype_name in ("float32", "bfloat16"):
             dtype = getattr(torch, dtype_name)
             esize = torch.finfo(dtype).bits // 8
-            for t in (256, 64):
-                g = torch.Generator(device="cuda").manual_seed(seed + t)
+            for b, t in shapes:
+                g = torch.Generator(device="cuda").manual_seed(seed + t + b)
                 # [B, T, H, D] projections viewed as [B, H, T, D], as BERT gives them
                 q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=g).to(dtype)
                            .transpose(1, 2) for _ in range(3))
@@ -221,8 +248,10 @@ def attention_phase(torch, attention, seed: int, batch: int) -> list:
                     raise AssertionError(f"fused_attention {dtype_name} T={t} rate={rate}: "
                                          f"max-abs {err} > {tol}")
                 kept = mask.float().mean().item() if rate else 1.0
-                if rate and not abs(kept - (1.0 - rate)) <= KEPT_TOL:
-                    raise AssertionError(f"kept fraction {kept}, expected {1 - rate} +- {KEPT_TOL}")
+                kept_tol = max(KEPT_TOL, 5.0 * math.sqrt(rate * (1.0 - rate) / mask.numel())) if rate else 0.0
+                if rate and not abs(kept - (1.0 - rate)) <= kept_tol:
+                    raise AssertionError(f"{dtype_name} {[b, h, t, d]}: kept fraction {kept}, expected "
+                                         f"{1 - rate} +- {kept_tol}")
 
                 ms = cuda_ms(torch, lambda: attention.fused_attention(q, k, v, bias, scale=scale,
                                                                       **drop), 20)
@@ -239,7 +268,7 @@ def attention_phase(torch, attention, seed: int, batch: int) -> list:
                 nbytes = 4.0 * b * h * t * d * esize + b * t * 4
                 bound_ms, bound_by = bound(flops, nbytes, dtype_name)
                 rec = dict(dtype=dtype_name, shape=[b, h, t, d], dropout_rate=rate, max_abs_err=err,
-                           tol=tol, kept_fraction=kept, ms=ms, plain_ms=plain_ms,
+                           tol=tol, kept_fraction=kept, kept_tol=kept_tol, ms=ms, plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                            share_of_bound=bound_ms / ms, vs_library=ms / library_ms,
                            gflop=flops / 1e9, mbytes=nbytes / 1e6, tflops=flops / ms / 1e9)
@@ -660,13 +689,16 @@ def make_step(cfg, batch_size: int, deterministic: bool):
                            deterministic=deterministic)
 
 
-def counters(attention, bias_act_mod):
-    return (attention.LAUNCHES["fused_attention"], bias_act_mod.LAUNCHES["forward"],
-            bias_act_mod.LAUNCHES["backward"])
+def counters(attention, bias_act_mod) -> dict:
+    """Every kernel's launch count, by its name in the kernels line."""
+    return dict(fused_attention=attention.LAUNCHES["fused_attention"],
+                fused_attention_dropout=attention.LAUNCHES["fused_attention_dropout"],
+                bias_act=bias_act_mod.LAUNCHES["forward"],
+                bias_act_backward=bias_act_mod.LAUNCHES["backward"])
 
 
 def zero_counters(attention, bias_act_mod):
-    attention.LAUNCHES["fused_attention"] = 0
+    attention.LAUNCHES.update(fused_attention=0, fused_attention_dropout=0)
     bias_act_mod.LAUNCHES.update(forward=0, backward=0)
 
 
@@ -735,12 +767,15 @@ def train_phase(torch, np, cfg, states, args, card, attention, bias_act_mod) -> 
             stats_seen.append(step(state, batch, gen))
             torch.cuda.synchronize()
             prof_wall_ms = (time.perf_counter() - t0) * 1e3
-        n_attn, n_fwd, n_bwd = counters(attention, bias_act_mod)
+        launches = counters(attention, bias_act_mod)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         steps = 5
-        if (n_attn, n_fwd, n_bwd) != (12 * steps, 48 * steps, 48 * steps):
-            raise AssertionError(f"train {dtype_name} T={t}: {n_attn} attention, {n_fwd} bias_act "
-                                 f"forward, {n_bwd} backward launches in {steps} steps")
+        # the hoisted text pass drops out: 12 dropout-form launches a step
+        want = dict(fused_attention=0, fused_attention_dropout=12 * steps, bias_act=48 * steps,
+                    bias_act_backward=48 * steps)
+        if launches != want:
+            raise AssertionError(f"train {dtype_name} T={t}: launches {launches} in {steps} steps, "
+                                 f"expected {want}")
         for stats in stats_seen:
             bad = [k for k, v in stats.items() if not math.isfinite(float(v))]
             if bad:
@@ -762,9 +797,7 @@ def train_phase(torch, np, cfg, states, args, card, attention, bias_act_mod) -> 
         prof_rec = profile_summary(prof, prof_wall_ms)
         rec = dict(dtype=dtype_name, T=t, batch=args.batch, step_ms=step_ms, step_ms_runs=times,
                    images_per_s=args.batch / step_ms * 1e3, peak_memory_gb=peak_gb,
-                   launches_per_step=dict(fused_attention=n_attn // steps,
-                                          bias_act=n_fwd // steps, bias_act_backward=n_bwd // steps),
-                   launches=dict(fused_attention=n_attn, bias_act=n_fwd, bias_act_backward=n_bwd),
+                   launches_per_step={k: v // steps for k, v in launches.items()}, launches=launches,
                    profiled_step_wall_ms=prof_wall_ms, **{k: v for k, v in prof_rec.items()
                                                           if k not in ("top", "top_host")},
                    losses={k: float(v) for k, v in stats_seen[-1].items()})
@@ -939,22 +972,84 @@ def check_ticks(records: list, ticks: list, steps: int, what: str) -> None:
         raise AssertionError(f"{what}: main-step stats of {got} steps, expected {steps}")
 
 
-def training_run_phase(torch, np, args, card, attention, bias_act_mod) -> dict:
+def run_dataset(tmp: str, seed: int) -> tuple:
+    """The training run's dataset, a structured synthetic zip of 64 samples
+    (256^2 backgrounds, up to 9 elements), and the text length T that
+    ``--max-text-length auto`` picks for it."""
+    from layoutdetr_tpu_torch.data.dataset import LayoutDataset
+    from layoutdetr_tpu_torch.data.synthetic import make_synthetic_zip
+    from layoutdetr_tpu_torch.train import auto_text_length
+
+    zip_path = make_synthetic_zip(os.path.join(tmp, "train.zip"), num_samples=64, image_size=256,
+                                  max_elements=9, seed=seed, structured=True)
+    measured = LayoutDataset(zip_path, cache=False).measured_max_text_tokens()
+    return zip_path, auto_text_length(measured)
+
+
+def augment_on_card(torch, np, zip_path: str, t: int, args, card) -> list:
+    """ADA's transform on the card at p = 1 (every group fires in every
+    sample) on a batch of backgrounds gathered by the device feed, for
+    CONDITIONAL_SAFE and AugmentConfig(): the host draws copied up, the
+    affine resample, the color matrices, the reflect pad and grouped conv
+    of the band filter, the noise image drawn by a device generator from
+    the draws' seed, and cutout. Held against the same call on the CPU with
+    the same draws and that noise image, to 1e-5 (CONDITIONAL_SAFE) and
+    2e-5 (the full pipe) of max |out|, the CPU tests' bars against JAX."""
+    from layoutdetr_tpu_torch.data.dataset import LayoutDataset
+    from layoutdetr_tpu_torch.data.device_cache import DeviceDatasetCache, gather_batch
+    from layoutdetr_tpu_torch.training.augment import (
+        CONDITIONAL_SAFE,
+        AugmentConfig,
+        apply_augment,
+        draw_augment_params,
+    )
+
+    cache = DeviceDatasetCache(LayoutDataset(zip_path, max_text_length=t, cache=False), "cuda")
+    idx = np.random.default_rng(args.seed).permutation(64)[:args.batch]
+    bg = gather_batch(cache.arrays, cache.put_indices(idx))["background"]
+    bg_cpu = bg.cpu()
+    out = []
+    for name, cfg, tol in (("CONDITIONAL_SAFE", CONDITIONAL_SAFE, 1e-5),
+                           ("AugmentConfig()", AugmentConfig(), 2e-5)):
+        params = draw_augment_params(args.batch, 1.0, torch.Generator().manual_seed(args.seed), cfg)
+        got = apply_augment(bg, params, cfg)
+        gen = torch.Generator(device="cuda").manual_seed(params["noise_seed"])
+        noise = torch.randn(bg.shape, generator=gen, device="cuda")
+        want = apply_augment(bg_cpu, params, cfg, noise=noise.cpu())
+        got = got.cpu()
+        scale = want.abs().max().item()
+        rel = (got - want).abs().max().item() / scale
+        changed = (got - bg_cpu).abs().amax(dim=(1, 2, 3))
+        if (got.shape != bg_cpu.shape or not torch.isfinite(got).all() or not rel <= tol
+                or not bool((changed > 0).all())):
+            raise AssertionError(f"augment {name} card vs CPU: {tuple(got.shape)}, relative max-abs "
+                                 f"{rel} (bar {tol}), per-sample change {changed.tolist()}")
+        ms = cuda_ms(torch, lambda: apply_augment(bg, params, cfg), 5)
+        rec = dict(cfg=name, shape=list(bg.shape), p=1.0, rel_max_abs=rel, tol=tol, max_abs_out=scale,
+                   ms=ms)
+        log(f"augment {name} p=1 on {list(bg.shape)}, card vs CPU (same draws, same noise): relative "
+            f"max-abs {rel:.3e} (bar {tol:.0e}); {ms:.3f} ms a call on the card  [{card}]")
+        out.append(rec)
+        del got, want, noise
+    del cache, bg
+    return out
+
+
+def training_run_phase(torch, np, args, card, attention, bias_act_mod, zip_path: str, t: int) -> dict:
     """Slice 3's main path, ``python -m layoutdetr_tpu_torch.train`` at full
-    width, then a resume through the host loader and one request served
-    from the snapshot."""
+    width on ``zip_path`` (whose auto text length is ``t``, the T phase 3
+    checked the run's attention shapes at), then a resume through the host
+    loader, one request served from the snapshot, and ADA's transform on
+    the card against the CPU."""
     import tempfile
     import zipfile
 
     from layoutdetr_tpu_torch import generate
     from layoutdetr_tpu_torch import train as train_cli
     from layoutdetr_tpu_torch.config import GeneratorConfig
-    from layoutdetr_tpu_torch.data.synthetic import make_synthetic_zip
     from layoutdetr_tpu_torch.training import train_loop
 
     with tempfile.TemporaryDirectory() as tmp:
-        zip_path = make_synthetic_zip(os.path.join(tmp, "train.zip"), num_samples=64, image_size=256,
-                                      max_elements=9, seed=args.seed, structured=True)
         common = ["--data", zip_path, "--batch", str(args.batch), "--bf16", "--max-text-length",
                   "auto", "--aug", "ada", "--gamma", "1", "--pl-weight", "2", "--metrics", "none",
                   "--seed", str(args.seed), "--snap", "1"]
@@ -967,22 +1062,23 @@ def training_run_phase(torch, np, args, card, attention, bias_act_mod) -> dict:
                                 "--max-steps", str(RUN_STEPS)])
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        n_attn, n_fwd, n_bwd = counters(attention, bias_act_mod)
+        launches = counters(attention, bias_act_mod)
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         (run_name,) = os.listdir(out)
         run_dir = os.path.join(out, run_name)
         records, ticks = read_run(run_dir)
 
-        # the launches: 12 attention a main and a reg step, 12 a summary
-        # forward (G, D) and an image snapshot (one a tick); 48 + 48 bias_act
-        # a main step, 48 forward in D's summary, none in a reg step
+        # the launches: 12 attention with dropout a main step; 12
+        # deterministic a reg step, a summary forward (G, D) and an image
+        # snapshot (one a tick); 48 + 48 bias_act a main step, 48 forward in
+        # D's summary, none in a reg step
         g_regs = len(range(0, RUN_STEPS, G_REG))
         d_regs = len(range(0, RUN_STEPS, D_REG))
-        want = (12 * (RUN_STEPS + g_regs + d_regs) + 12 * 2 + 12 * len(ticks),
-                48 * RUN_STEPS + 48, 48 * RUN_STEPS)
-        if (n_attn, n_fwd, n_bwd) != want:
-            raise AssertionError(f"training run: launches (attention, bias_act fwd, bwd) "
-                                 f"{(n_attn, n_fwd, n_bwd)}, expected {want}")
+        want = dict(fused_attention=12 * (g_regs + d_regs) + 12 * 2 + 12 * len(ticks),
+                    fused_attention_dropout=12 * RUN_STEPS, bias_act=48 * RUN_STEPS + 48,
+                    bias_act_backward=48 * RUN_STEPS)
+        if launches != want:
+            raise AssertionError(f"training run: launches {launches}, expected {want}")
         check_ticks(records, ticks, RUN_STEPS, "training run")
         if (sum(r.get("Loss/G/reg", {}).get("num", 0) for r in records) != g_regs
                 or sum(r.get("Loss/D/reg", {}).get("num", 0) for r in records) != d_regs):
@@ -995,11 +1091,13 @@ def training_run_phase(torch, np, args, card, attention, bias_act_mod) -> dict:
             raise AssertionError(f"no snapshot {snap} with its .gcfg.json in {os.listdir(run_dir)}")
         if state.step != RUN_STEPS:
             raise AssertionError(f"state.step {state.step}")
+        with open(snap + ".gcfg.json") as f:
+            gcfg = GeneratorConfig.from_dict(json.load(f))
+        if gcfg.max_text_length != t:
+            raise AssertionError(f"the run trained at T={gcfg.max_text_length}; phase 3 checked T={t}")
 
         # trainable parameters moved, frozen ones did not: against the same
         # seeded init (G's frozen encoder copied into D, as the loop does)
-        with open(snap + ".gcfg.json") as f:
-            gcfg = GeneratorConfig.from_dict(json.load(f))
         G0, D0 = train_loop.init_models(gcfg, "cuda", torch.bfloat16, args.seed)
         D0.text_encoder.load_state_dict(G0.text_encoder.state_dict())
         frozen, moved, unmoved = 0, 0, []
@@ -1028,21 +1126,20 @@ def training_run_phase(torch, np, args, card, attention, bias_act_mod) -> dict:
                    reg_share=run_reg_s / (run_main_s + run_reg_s),
                    reg_share_last_tick=last["reg_step_s"] / (last["main_step_s"] + last["reg_step_s"]),
                    peak_memory_gb=peak_gb, devmem_peak_gb=max(r["devmem_peak_gb"] for r in records),
-                   launches=dict(fused_attention=n_attn, bias_act=n_fwd, bias_act_backward=n_bwd),
-                   launches_expected=dict(zip(("fused_attention", "bias_act", "bias_act_backward"),
-                                              want)),
+                   launches=launches, launches_expected=want,
                    ada_updates=ada_updates, augment_p=last["augment_p"],
                    trainable_moved=moved, frozen_unchanged=frozen, T=gcfg.max_text_length)
         del state
         torch.cuda.empty_cache()
         log(f"training run bf16 batch {args.batch} T={gcfg.max_text_length} (auto), {RUN_STEPS} "
             f"steps + {g_regs} path-length + {d_regs} R1 steps: {rec['sec_per_kimg']:.2f} sec/kimg "
-            f"(tick 1, steps 1-16), reg steps {100 * rec['reg_share']:.1f}% of the steps' device "
-            f"time ({100 * rec['reg_share_last_tick']:.1f}% in tick 1), peak memory "
-            f"{peak_gb:.2f} GiB, wall {wall_s:.1f} s  [{card}]")
-        log(f"  launches: fused_attention {n_attn}, bias_act {n_fwd} forward / {n_bwd} backward "
-            f"(expected {want}); ADA p updated {ada_updates} times (p = {rec['augment_p']:.5f}); "
-            f"{moved} trainable tensors moved, {frozen} frozen unchanged")
+            f"(tick 1, steps 1-16), reg steps {100 * rec['reg_share']:.1f}% of the steps' step "
+            f"time ({100 * rec['reg_share_last_tick']:.1f}% in tick 1; step time = the stream span "
+            f"between CUDA events around each step, on these host-bound steps mostly the card "
+            f"waiting on the host), peak memory {peak_gb:.2f} GiB, wall {wall_s:.1f} s  [{card}]")
+        log(f"  launches: {launches} (as expected); ADA p updated {ada_updates} times "
+            f"(p = {rec['augment_p']:.5f}); {moved} trainable tensors moved, {frozen} frozen "
+            f"unchanged")
 
         # resume through the host loader, the restored state checked bit for bit
         restored: list = []
@@ -1070,12 +1167,15 @@ def training_run_phase(torch, np, args, card, attention, bias_act_mod) -> dict:
                                    "--string-labels", "header|button", "--device", "cuda",
                                    "--outfile", os.path.join(tmp, "served", "banner")])
         served = attention.LAUNCHES["fused_attention"]
-        if (served != 12 or not np.isfinite(layout.bbox).all()
+        if (counters(attention, bias_act_mod) != dict(fused_attention=12, fused_attention_dropout=0,
+                                                      bias_act=0, bias_act_backward=0)
+                or not np.isfinite(layout.bbox).all()
                 or not ((layout.raw > 0) & (layout.raw < 1)).all()):
             raise AssertionError(f"serving from the snapshot: {served} launches, {layout.raw}")
         rec["served"] = dict(bbox=layout.bbox[layout.mask].tolist(), launches=served)
         log(f"served from the snapshot (generate --ckpt, G_ema): boxes "
             f"{np.round(layout.bbox[layout.mask], 4).tolist()}, {served} attention launches")
+    rec["augment_on_card"] = augment_on_card(torch, np, zip_path, t, args, card)
     return rec
 
 
@@ -1133,8 +1233,16 @@ def main() -> int:
         with open(lib + ".log") as f:
             log(f.read().strip())
 
+    # the training run's dataset, made first: its --max-text-length auto
+    # bucket sets the run's attention shapes, which phase 3 checks
+    workdir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    zip_path, run_t = run_dataset(workdir.name, args.seed)
+    log(f"training-run dataset: 64 samples, --max-text-length auto -> T={run_t}")
+
     # 3. kernels vs plain
-    attn_cases = attention_phase(torch, attention, args.seed, args.batch)
+    shapes = list(dict.fromkeys(serving_attention_shapes(args.batch)
+                                + run_attention_shapes(args.batch, run_t)))
+    attn_cases = attention_phase(torch, attention, args.seed, shapes)
     cfg = GeneratorConfig()
     torch.manual_seed(args.seed)
     with torch.device("cuda"):
@@ -1229,8 +1337,11 @@ def main() -> int:
         log(f"serving {dtype_name} T={t} batch {args.batch}: {rec['requests_per_s']:.1f} requests/s "
             f"end to end ({rec['request_batch_ms']:.1f} ms a batch)  [{card}]")
     serve_launches = attention.LAUNCHES["fused_attention"]
-    if serve_launches != forwards * cfg.bert_num_encoder_layers or counters(attention, bias_act_mod)[1:] != (0, 0):
-        raise AssertionError(f"serving launched {counters(attention, bias_act_mod)} in {forwards} forwards")
+    want = dict(fused_attention=forwards * cfg.bert_num_encoder_layers, fused_attention_dropout=0,
+                bias_act=0, bias_act_backward=0)
+    if counters(attention, bias_act_mod) != want:
+        raise AssertionError(f"serving launched {counters(attention, bias_act_mod)} in {forwards} "
+                             f"forwards, expected {want}")
     log(f"main path (serving): {forwards} served batches, fused_attention launched {serve_launches} times")
 
     # 6. the forward alone, outside the counted run: time and device profile
@@ -1247,7 +1358,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 9. the training run, slice 3's main path
-    run = training_run_phase(torch, np, args, card, attention, bias_act_mod)
+    run = training_run_phase(torch, np, args, card, attention, bias_act_mod, zip_path, run_t)
+    workdir.cleanup()
 
     kernels = kernel_records(attn_cases, bias_cases, serve_launches, train, run)
     log(json.dumps({"serving": serving, "train": train, "step_correctness": correctness,
@@ -1328,7 +1440,7 @@ def attention_only(torch, args) -> int:
     log(f"build attention.cu: {time.perf_counter() - t0:.2f} s")
     with open(lib + ".log") as f:
         log(f.read().strip())
-    cases = attention_phase(torch, attention, args.seed, args.batch)
+    cases = attention_phase(torch, attention, args.seed, serving_attention_shapes(args.batch))
     host = attention_host_costs(torch, attention)
     log(json.dumps({"tree": ROOT, "card": card, "host": host, "cases": cases}))
     return 0
@@ -1351,20 +1463,20 @@ def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run
     """The kernels line: each kernel at its representative case (fp32,
     T=256 for attention; one fp32 step's 48 bias_act calls summed), with
     the launches of each main path that runs it (``launches_by_path``) and
-    their sum. The training run's attention launches, of both forms (12 a
-    main step with dropout, the rest deterministic), count under
-    fused_attention: the counter counts the kernel."""
+    their sum. Attention's two forms count apart: the dropout form under
+    fused_attention_dropout (the train step's and the training run's main
+    steps), the deterministic one under fused_attention."""
     def attn(rate):
         return next(c for c in attn_cases if c["dtype"] == "float32" and c["shape"][2] == 256
                     and c["dropout_rate"] == rate)
 
-    train_launches = {k: sum(r["launches"][k] for r in train)
-                      for k in ("fused_attention", "bias_act", "bias_act_backward")}
-    by_path = {"fused_attention": dict(serving=serve_launches,
-                                       training_run=run["launches"]["fused_attention"]),
-               "fused_attention_dropout": dict(train_step=train_launches["fused_attention"])}
-    for k in ("bias_act", "bias_act_backward"):
-        by_path[k] = dict(train_step=train_launches[k], training_run=run["launches"][k])
+    by_path = {"fused_attention": dict(serving=serve_launches)}
+    for k in ("fused_attention", "fused_attention_dropout", "bias_act", "bias_act_backward"):
+        by_path.setdefault(k, {})
+        train_launches = sum(r["launches"][k] for r in train)
+        if train_launches:
+            by_path[k]["train_step"] = train_launches
+        by_path[k]["training_run"] = run["launches"][k]
     src = "layoutdetr_tpu_torch/ops/csrc/"
     out = []
     for name, rate in (("fused_attention", 0.0), ("fused_attention_dropout", DROPOUT)):

@@ -16,7 +16,9 @@ same entries.
 
 ``fused_attention`` launches the kernel for CUDA tensors and uses
 ``attention_ref`` only for CPU tensors; there is no fallback from one to
-the other. ``LAUNCHES["fused_attention"]`` counts kernel launches.
+the other. ``LAUNCHES`` counts kernel launches by form:
+``"fused_attention"`` the deterministic ones, ``"fused_attention_dropout"``
+those with dropout.
 
 The host path is kept light: a ``Plan`` per call signature (shapes,
 strides and dtypes of q, k, v, the output and the bias, scale, rate) is
@@ -42,7 +44,8 @@ from layoutdetr_tpu_torch.ops import _build
 
 HEAD_DIM = 192  # the head dim the kernel is built for (768 wide, 4 heads)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-LAUNCHES = {"fused_attention": 0}  # kernel launches, counted where they happen
+# kernel launches by form, counted where they happen
+LAUNCHES = {"fused_attention": 0, "fused_attention_dropout": 0}
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -293,5 +296,5 @@ def fused_attention(q, k, v, bias, *, scale, dropout_rate=0.0, seed=None):
              seed, dev, stream(dev))
     if err != 0:
         raise RuntimeError(f"attention kernel ({plan.body}) launch failed: cudaError {err}")
-    LAUNCHES["fused_attention"] += 1
+    LAUNCHES["fused_attention_dropout" if dropout_rate > 0.0 else "fused_attention"] += 1
     return out

@@ -40,6 +40,12 @@ from layoutdetr_tpu_torch.training.loss import LossWeights
 T_BUCKETS = (16, 32, 64, 128, 256)
 
 
+def auto_text_length(measured: int) -> int:
+    """``--max-text-length auto``: the smallest bucket of ``T_BUCKETS`` that
+    holds ``measured`` tokens, else 256 (longer texts are truncated)."""
+    return next((b for b in T_BUCKETS if b >= measured), 256)
+
+
 def _ranged(kind, lo=None, hi=None):
     def parse(s):
         v = kind(s)
@@ -201,7 +207,7 @@ def main(argv: Optional[Sequence[str]] = None):
                           max_text_length=max_text_length, cache=False)
     if auto_text_len:
         measured = probe.measured_max_text_tokens()
-        max_text_length = next((b for b in T_BUCKETS if b >= measured), 256)
+        max_text_length = auto_text_length(measured)
         trunc = "" if measured <= 256 else f" (longest text is {measured} tokens; truncated)"
         print(f"--max-text-length auto: dataset max token length {measured} "
               f"-> T={max_text_length}{trunc}")

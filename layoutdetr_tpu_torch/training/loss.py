@@ -29,7 +29,7 @@ through D's critics at ``reconst=False``, which never reach ``bias_act``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -207,22 +207,23 @@ def d_main_loss(G, D, batch, z, w: LossWeights, deterministic: bool = False,
 def g_pl_loss(G, batch, w: LossWeights, pl_mean: torch.Tensor, z: Optional[torch.Tensor] = None,
               pl_noise: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None,
-              text_feat: Optional[torch.Tensor] = None, pl_decay: float = 0.01,
+              text_feature_fn: Optional[Callable] = None, pl_decay: float = 0.01,
               pl_batch_shrink: int = 2) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """Gpl, the path-length penalty on the z -> bbox Jacobian (loss.py:225-250;
     reference loss.py:119-142), on the first b / ``pl_batch_shrink``
     samples, deterministic. ``z`` ([>= shrink, N, z_dim]) and ``pl_noise``
     (standard normal, [shrink, N, 4]) are drawn from ``generator`` when not
-    given; ``text_feat`` holds the shrunk batch's hoisted text features
-    (G's own encoder runs without it). Returns (loss, new pl_mean
-    (detached), stats); the loss keeps its graph to G's parameters."""
-    inputs = _model_inputs(batch)
+    given. ``text_feature_fn`` (``make_text_feature_fn`` of G's frozen
+    encoder) computes the shrunk batch's text features once, without
+    gradients; without it G's own encoder runs in the forward. Returns
+    (loss, new pl_mean (detached), stats); the loss keeps its graph to G's
+    parameters."""
     b = batch["labels"].shape[0]
     shrink = max(b // pl_batch_shrink, 1)
     dev = batch["labels"].device
-    inputs = {k: v[:shrink] for k, v in inputs.items()}
-    if text_feat is not None:
-        inputs["text_feat"] = text_feat
+    inputs = {k: v[:shrink] for k, v in _model_inputs(batch).items()}
+    if text_feature_fn is not None:
+        inputs["text_feat"] = text_feature_fn(inputs["text_ids"], inputs["text_mask"])
     n = batch["labels"].shape[1]
     if z is None:
         z = torch.randn(shrink, n, G.cfg.z_dim, device=dev, generator=fork_generator(generator, dev))
@@ -242,15 +243,16 @@ def g_pl_loss(G, batch, w: LossWeights, pl_mean: torch.Tensor, z: Optional[torch
 
 
 def d_r1_loss(D, batch, w: LossWeights,
-              text_feat: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
+              text_feature_fn: Optional[Callable] = None) -> Tuple[torch.Tensor, dict]:
     """Dr1, the gradient penalty on D's logits w.r.t. the bbox input
     (loss.py:253-267; reference loss.py:209-215), deterministic, at
-    ``reconst=False``. ``text_feat``: the hoisted text features (D's own
-    encoder runs without them). The loss keeps its graph to D's
-    parameters."""
+    ``reconst=False``. ``text_feature_fn`` (``make_text_feature_fn`` of D's
+    frozen encoder) computes the text features once, without gradients;
+    without it D's own encoder runs in the forward. The loss keeps its
+    graph to D's parameters."""
     inputs = _model_inputs(batch)
-    if text_feat is not None:
-        inputs["text_feat"] = text_feat
+    if text_feature_fn is not None:
+        inputs["text_feat"] = text_feature_fn(inputs["text_ids"], inputs["text_mask"])
     bbox = batch["bboxes"].detach().requires_grad_(True)
     logits, _ = D(bbox, deterministic=True, **inputs)
     (r1_grads,) = torch.autograd.grad(logits.sum(), bbox, create_graph=True)

@@ -25,10 +25,12 @@ Counterpart of ``layoutdetr_tpu/training/train_loop.py:178-650``
 
 The steps' stats stay on the card: each step's 0-dim stats are stacked
 into one vector, and the vectors of ``stats_fetch_every`` steps come back
-in one copy (the ADA interval, else 16; and at every tick). The card's
-time in the main and the reg steps between two ticks is read from CUDA
-events (the host clock on the CPU) and written to ``stats.jsonl`` as
-``main_step_s`` and ``reg_step_s``.
+in one copy (the ADA interval, else 16; and at every tick). The step time
+of the main and the reg steps between two ticks, the stream span between
+CUDA events recorded before and after each step (the host clock on the
+CPU), is written to ``stats.jsonl`` as ``main_step_s`` and
+``reg_step_s``. On a host-bound step that span is mostly the card
+waiting on the host, not the card's busy time.
 """
 
 from __future__ import annotations
@@ -93,8 +95,10 @@ def _device_mem_gb(device: torch.device):
 
 
 class _StepClock:
-    """Time of the main and reg steps between ticks: CUDA events on a card
-    (read at the tick, after a sync), the host clock on the CPU."""
+    """Step time of the main and reg steps between ticks: on a card the
+    stream span between CUDA events recorded before and after each step
+    (read at the tick, after a sync; it includes the card waiting on the
+    host), the host clock on the CPU."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"

@@ -40,11 +40,12 @@ ADA-augmented (``loss._augmented``).
 
 The lazy-regularization steps (``make_g_reg_step``, ``make_d_reg_step``;
 JAX's :245-289) run on their intervals with the loss scaled by the
-interval. Each first computes the text features of its batch once,
-deterministic and without gradients (G's encoder for the path-length
-step, D's for R1): the features depend neither on z nor on the bbox, and
-the pass runs the fused attention kernel, where a grad-enabled encoder
-would run the plain version. Then the penalty's double backward, the
+interval. Each hands its loss the frozen encoder's feature function (G's
+for the path-length step, D's for R1), so the loss computes the text
+features of the samples it uses once, deterministic and without
+gradients: the features depend neither on z nor on the bbox, and the
+pass runs the fused attention kernel, where a grad-enabled encoder would
+run the plain version. Then the penalty's double backward, the
 sanitized gradients (zeros where a trainable parameter takes no part, as
 optax sees them) and the phase's Adam.
 """
@@ -225,21 +226,16 @@ def _reg_update(opt: torch.optim.Optimizer, module: nn.Module, loss: torch.Tenso
 
 
 def make_g_reg_step(weights: LossWeights, z_dim: int = 4, max_elements: int = 9,
-                    gain: float = 4.0, pl_batch_shrink: int = 2):
+                    gain: float = 4.0):
     """The path-length step (JAX's :245-269): returns ``step(state, batch,
     generator, z=None, pl_noise=None) -> stats``, run every G reg interval
     batches with the loss scaled by ``gain`` = the interval."""
 
     def step(state: GANTrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator,
              z: Optional[torch.Tensor] = None, pl_noise: Optional[torch.Tensor] = None) -> dict:
-        shrink = max(batch["labels"].shape[0] // pl_batch_shrink, 1)
-        with record_function("g_reg.text"):
-            text_feat = make_text_feature_fn(state.G.text_encoder)(
-                batch["text_ids"][:shrink], batch["text_mask"][:shrink], True)
         with record_function("g_reg.pl"):
             loss, pl_mean, stats = g_pl_loss(state.G, batch, weights, state.pl_mean, z, pl_noise,
-                                             generator, text_feat,
-                                             pl_batch_shrink=pl_batch_shrink)
+                                             generator, make_text_feature_fn(state.G.text_encoder))
             _reg_update(state.opt_g, state.G, loss * gain)
         state.pl_mean = pl_mean
         return stats
@@ -255,11 +251,8 @@ def make_d_reg_step(weights: LossWeights, gain: float = 16.0):
     def step(state: GANTrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None) -> dict:
         del generator
-        with record_function("d_reg.text"):
-            text_feat = make_text_feature_fn(state.D.text_encoder)(
-                batch["text_ids"], batch["text_mask"], True)
         with record_function("d_reg.r1"):
-            loss, stats = d_r1_loss(state.D, batch, weights, text_feat)
+            loss, stats = d_r1_loss(state.D, batch, weights, make_text_feature_fn(state.D.text_encoder))
             _reg_update(state.opt_d, state.D, loss * gain)
         return stats
 

@@ -306,7 +306,7 @@ def _card_inputs(b, h, t, dtype, layout, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("t", [1, 63, 64, 65, 77, 128, 200, 256])
+@pytest.mark.parametrize("t", [1, 16, 63, 64, 65, 77, 128, 200, 256])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("layout,b,h", [("strided", 18, 4), ("contiguous", 18, 4),
                                         ("strided", 3, 1)])
@@ -322,11 +322,12 @@ def test_kernel_matches_plain_on_card(dtype, tol, t, rate, layout, b, h):
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, bias = _card_inputs(b, h, t, dtype, layout, t)
-    before = attention.LAUNCHES["fused_attention"]
+    before = dict(attention.LAUNCHES)
     got = attention.fused_attention(q, k, v, bias, scale=192 ** -0.5, dropout_rate=rate,
                                     seed=77 if rate else None)
     torch.cuda.synchronize()
-    assert attention.LAUNCHES["fused_attention"] == before + 1
+    form = "fused_attention_dropout" if rate else "fused_attention"
+    assert attention.LAUNCHES == dict(before, **{form: before[form] + 1})
     mask = attention.keep_mask(77, b, h, t, rate, device="cuda") if rate else None
     want = attention.attention_ref(q.float(), k.float(), v.float(), bias, 192 ** -0.5, rate, mask)
     assert got.dtype == dtype and got.shape == q.shape and got.stride() == q.stride()

@@ -2,8 +2,9 @@
 reg steps vs the JAX package's.
 
 Tiny dims, batch 2, fp32, the same params, z and pl_noise on both sides.
-The port hands the losses the hoisted text features (deterministic, no
-gradients), as its reg steps do; JAX's losses run the models' own
+The port hands the losses the frozen encoders' feature functions, so
+they hoist the text features (deterministic, no gradients), as its reg
+steps do; JAX's losses run the models' own
 encoders. Bars: losses and pl_mean 1e-5 relative; after one reg step the
 parameters lie within 2 lr_eff of JAX's with under 0.1% of entries more
 than 1e-6 off, as in ``test_torch_train_step.py`` (Adam's first update is
@@ -89,16 +90,16 @@ def test_pl_and_r1_losses_match_jax(case):
 
     state = _state(cfg, pg, pd)
     tb = _torch(batch)
-    tf_g = make_text_feature_fn(state.G.text_encoder)(tb["text_ids"][:shrink], tb["text_mask"][:shrink])
-    got, got_mean, got_stats = g_pl_loss(state.G, tb, LossWeights(**WEIGHTS), torch.tensor(pl_mean),
-                                         torch.from_numpy(z), torch.from_numpy(noise), text_feat=tf_g)
+    got, got_mean, got_stats = g_pl_loss(
+        state.G, tb, LossWeights(**WEIGHTS), torch.tensor(pl_mean), torch.from_numpy(z),
+        torch.from_numpy(noise), text_feature_fn=make_text_feature_fn(state.G.text_encoder))
     _close(got, float(loss), "pl loss")
     _close(got_mean, float(new_mean), "pl_mean")
     _close(got_stats["Loss/pl_penalty"], float(stats["Loss/pl_penalty"]), "pl_penalty")
     assert got.requires_grad and float(loss) > 0
 
-    tf_d = make_text_feature_fn(state.D.text_encoder)(tb["text_ids"], tb["text_mask"])
-    got_r1, got_r1_stats = d_r1_loss(state.D, tb, LossWeights(**WEIGHTS), text_feat=tf_d)
+    got_r1, got_r1_stats = d_r1_loss(state.D, tb, LossWeights(**WEIGHTS),
+                                     text_feature_fn=make_text_feature_fn(state.D.text_encoder))
     _close(got_r1, float(r1), "r1 loss")
     _close(got_r1_stats["Loss/r1_penalty"], float(r1_stats["Loss/r1_penalty"]), "r1_penalty")
     assert got_r1.requires_grad and float(r1) > 0
