@@ -23,13 +23,15 @@ Phases (any failure ends the run with a non-zero exit and no result):
    shapes, with its time, the plain version's, one PyTorch library call's
    and the card's bound:
    - fused_attention [rows, 4, T, 192] at every shape of the main paths:
-     serving and the train step (rows B*9, T in {256, 64}) and the
-     training run at its auto bucket T (16 on its zip, a partial 64-key
-     chunk): rows B*9 (main and R1 steps), (B/2)*9 (path length), 9
-     (module summaries, the served request) and 36 (image snapshot); fp32
-     and bf16, key padding down to length 2; deterministic, and with
-     dropout 0.1 against the plain version with the same Philox keep mask;
-     each case's share of its bound and its time over sdpa's;
+     serving and the train step (rows B*9, T in {256, 64}), the training
+     run at its auto bucket T (16 on its zip, a partial 64-key chunk):
+     rows B*9 (main and R1 steps, the metric ticks), (B/2)*9 (path
+     length), 9 (module summaries, the served request) and 36 (image
+     snapshot), and the evaluation (rows B*9 and the last partial batch's,
+     at T=16 and T=256); fp32 and bf16, key padding down to length 2;
+     deterministic, and with dropout 0.1 against the plain version with
+     the same Philox keep mask; each case's share of its bound and its
+     time over sdpa's;
    - bias_act forward and backward at every distinct shape of the train
      step's 48 calls (D's bg_decoder at batch 16), fp32 and bf16 (b in
      x's dtype, as the models pass it; a bf16 call also with b in fp32,
@@ -64,14 +66,18 @@ Phases (any failure ends the run with a non-zero exit and no result):
    (GeneratorConfig() widths, weights random from --seed) on a structured
    synthetic zip of 64 samples (256^2 backgrounds, up to 9 elements), bf16,
    --max-text-length auto, ADA, R1 (gamma 1) and path length (weight 2),
-   the device feed, a snapshot each tick, 17 steps: 17 main steps, 5
+   the device feed, a snapshot each tick, the default ``--metrics
+   layout_fid50k_val`` at each snapshot tick on a val.zip of 64 structured
+   samples beside the run's zip, 17 steps: 17 main steps, 5
    path-length steps (batches 0, 4, 8, 12, 16) and 2 R1 steps (0, 16), with
    the launch counts set to 0 before and read after: 12 attention launches
    with dropout a main step; 12 deterministic ones a reg step, a G and a D
-   forward of the startup module summaries and an image snapshot (one a
-   tick); 48 bias_act forward and 48 backward launches a main step, plus 48
-   forward in D's summary, none in a reg step. Checks: finite tick lines
-   and stats.jsonl, every step's stats present, ADA's p updated 4 times,
+   forward of the startup module summaries, an image snapshot (one a
+   tick) and each G_ema forward of the metric (4 a tick); 48 bias_act
+   forward and 48 backward launches a main step, plus 48 forward in D's
+   summary, none in a reg step. Checks: finite tick lines, stats.jsonl and
+   metric lines (one a snapshot tick), every step's stats present, ADA's p
+   updated 4 times,
    the snapshot and its .gcfg.json, the run's T the one phase 3 checked,
    trainable parameters moved and frozen ones not; then a resume from the
    snapshot through the host loader (--device-feed off --workers 2
@@ -81,7 +87,23 @@ Phases (any failure ends the run with a non-zero exit and no result):
    against the CPU with the same draws and noise (CONDITIONAL_SAFE and the
    full pipe; the run's p stays near 0 with a random D). sec/kimg, the reg
    steps' share of the step time (the stream span between CUDA events
-   around each step) and peak memory are printed beside the launch counts.
+   around each step) and peak memory are printed beside the launch counts;
+10. evaluation (slice 4's main path): ``python -m
+   layoutdetr_tpu_torch.evaluate`` through ``evaluate.main``, with the
+   launch counts set to 0 before and read after: (a) phase 9's last
+   snapshot (T=16, its G_ema in fp32) on the val.zip, all four metrics,
+   ``--max-items 64 --batch 16``, with ``--inception-ckpt`` a full
+   InceptionV3 state dict from seeded random weights (pytorch-fid naming);
+   (b) a full-width fp32 Generator (weights from --seed) written by
+   ``save_generator`` at T=256, the reference workload, running
+   ``layout_fid50k_val`` and the layout suite on 40 items (a partial last
+   batch). Checks: every value finite, one jsonl line per metric,
+   ``rendering_val``'s fake and real banners equal in number, and 12
+   deterministic attention launches per G_ema forward (counted at
+   ``generate_layouts``). Then LayoutNet and Inception features on the card
+   against the CPU (fp32, same inputs). Printed: each metric's
+   ``total_time``, layouts generated a second, Inception images a second,
+   host compositing ms an image and peak memory.
 
 The last three lines of standard output are the kernels JSON, the card
 (nvidia-smi name, power limit) and ``{"ok": true, "device": {...}}``.
@@ -157,6 +179,16 @@ WORDS = ("summer sale up to 50% off shop now free shipping new arrivals limited 
          "sign up today exclusive deals best price learn more the ultimate collection").split()
 LABELS = ("header", "pre-header", "post-header", "body text", "disclaimer / footnote",
           "button", "callout", "logo")
+# LayoutNet and Inception features, card vs CPU, fp32 without TF32, same
+# weights and inputs: cuBLAS and cuDNN sum in other orders than the CPU's
+# kernels. LayoutNet: 4 post-norm layers of 256-wide GEMMs, like the
+# Generator's DETR stack (CPU_TOL). Inception: ~94 convolutions with
+# fan-ins up to 3 x 3 x 448 and no normalisation between them but frozen
+# BN; cuDNN may also pick Winograd or FFT algorithms, which round more.
+LAYOUTNET_CPU_TOL = 1e-4  # of max |feature|
+INCEPTION_CPU_TOL = 1e-3  # of max |feature|
+EVAL_ITEMS, EVAL_WIDE_ITEMS = 64, 40  # phase 10 (a) and (b); 40 = 2 x 16 + a partial 8
+SUITE = "overlap50k_alignment50k_layoutwise_iou50k_layoutwise_docsim50k_val"
 TRAIN_VARIANTS = (("bfloat16", 256), ("float32", 256), ("bfloat16", 64))
 RANGES = ("train_step.", "Optimizer.")  # profiler range names, not kernels
 
@@ -202,11 +234,23 @@ def serving_attention_shapes(batch: int) -> list:
 
 def run_attention_shapes(batch: int, t: int) -> list:
     """(rows, T) of every attention call of the training run (phase 9) at
-    its bucket T: the main and R1 steps (batch * 9 texts), the
-    path-length step (batch // 2 samples), the module summaries and the
-    request served from the snapshot (1 sample), and the image snapshot
-    (4 samples)."""
+    its bucket T: the main and R1 steps and the metric ticks (batch * 9
+    texts), the path-length step (batch // 2 samples), the module
+    summaries and the request served from the snapshot (1 sample), and the
+    image snapshot (4 samples)."""
     return [(batch * 9, t), (max(batch // 2, 1) * 9, t), (9, t), (4 * 9, t)]
+
+
+def eval_attention_shapes(batch: int, run_t: int) -> list:
+    """(rows, T) of the evaluation's attention calls (phase 10): G_ema at
+    ``batch`` layouts and at the last partial batch's, (a) at the training
+    run's T over EVAL_ITEMS items and (b) at T=256 over EVAL_WIDE_ITEMS."""
+    out = []
+    for items, t in ((EVAL_ITEMS, run_t), (EVAL_WIDE_ITEMS, 256)):
+        out.append((batch * 9, t))
+        if items % batch:
+            out.append((items % batch * 9, t))
+    return out
 
 
 def attention_phase(torch, attention, seed: int, shapes: list) -> list:
@@ -899,6 +943,7 @@ def step_correctness_phase(torch, np, cfg, states, args, attention, bias_act_mod
 # ---------------------------------------------------------------------------
 
 RUN_STEPS, RESUME_STEPS, G_REG, D_REG, ADA_INTERVAL = 17, 2, 4, 16, 4
+RUN_SAMPLES = 64  # the training zip's and the val.zip's
 
 
 def same_bits(torch, a, b, where: str = "") -> None:
@@ -973,17 +1018,19 @@ def check_ticks(records: list, ticks: list, steps: int, what: str) -> None:
 
 
 def run_dataset(tmp: str, seed: int) -> tuple:
-    """The training run's dataset, a structured synthetic zip of 64 samples
-    (256^2 backgrounds, up to 9 elements), and the text length T that
-    ``--max-text-length auto`` picks for it."""
+    """The training run's dataset, a structured synthetic zip of RUN_SAMPLES
+    samples (256^2 backgrounds, up to 9 elements), the val.zip beside it
+    (as many, another seed) and the text length T that ``--max-text-length auto``
+    picks for the training zip."""
     from layoutdetr_tpu_torch.data.dataset import LayoutDataset
     from layoutdetr_tpu_torch.data.synthetic import make_synthetic_zip
     from layoutdetr_tpu_torch.train import auto_text_length
 
-    zip_path = make_synthetic_zip(os.path.join(tmp, "train.zip"), num_samples=64, image_size=256,
-                                  max_elements=9, seed=seed, structured=True)
+    zip_path, val_path = (make_synthetic_zip(os.path.join(tmp, name), num_samples=RUN_SAMPLES,
+                                             image_size=256, max_elements=9, seed=s, structured=True)
+                          for name, s in (("train.zip", seed), ("val.zip", seed + 1)))
     measured = LayoutDataset(zip_path, cache=False).measured_max_text_tokens()
-    return zip_path, auto_text_length(measured)
+    return zip_path, val_path, auto_text_length(measured)
 
 
 def augment_on_card(torch, np, zip_path: str, t: int, args, card) -> list:
@@ -1005,7 +1052,7 @@ def augment_on_card(torch, np, zip_path: str, t: int, args, card) -> list:
     )
 
     cache = DeviceDatasetCache(LayoutDataset(zip_path, max_text_length=t, cache=False), "cuda")
-    idx = np.random.default_rng(args.seed).permutation(64)[:args.batch]
+    idx = np.random.default_rng(args.seed).permutation(RUN_SAMPLES)[:args.batch]
     bg = gather_batch(cache.arrays, cache.put_indices(idx))["background"]
     bg_cpu = bg.cpu()
     out = []
@@ -1035,147 +1082,387 @@ def augment_on_card(torch, np, zip_path: str, t: int, args, card) -> list:
     return out
 
 
-def training_run_phase(torch, np, args, card, attention, bias_act_mod, zip_path: str, t: int) -> dict:
+@contextlib.contextmanager
+def counted_generation(layout_fid, seen: dict):
+    """Inside, every ``generate_layouts`` batch (one G_ema forward) is
+    counted in ``seen``: ``forwards``, ``layouts`` and ``s``, the host
+    seconds spent producing the batches (collate, copies, the forward and
+    its copy back, which waits for the card)."""
+    real = layout_fid.generate_layouts
+
+    def counted(opts, indices, batch=16):
+        it = real(opts, indices, batch)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                bbox_fake, b = next(it)
+            except StopIteration:
+                return
+            seen["s"] = seen.get("s", 0.0) + time.perf_counter() - t0
+            seen["forwards"] = seen.get("forwards", 0) + 1
+            seen["layouts"] = seen.get("layouts", 0) + bbox_fake.shape[0]
+            yield bbox_fake, b
+
+    layout_fid.generate_layouts = counted
+    try:
+        yield seen
+    finally:
+        layout_fid.generate_layouts = real
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def training_run_phase(torch, np, args, card, attention, bias_act_mod, tmp: str, zip_path: str,
+                       t: int) -> dict:
     """Slice 3's main path, ``python -m layoutdetr_tpu_torch.train`` at full
-    width on ``zip_path`` (whose auto text length is ``t``, the T phase 3
-    checked the run's attention shapes at), then a resume through the host
+    width on ``zip_path`` in ``tmp`` (whose auto text length is ``t``, the T
+    phase 3 checked the run's attention shapes at; the val.zip beside it
+    feeds the metric at each snapshot tick), then a resume through the host
     loader, one request served from the snapshot, and ADA's transform on
-    the card against the CPU."""
-    import tempfile
+    the card against the CPU. The record's ``snapshot`` is the run's last."""
     import zipfile
 
     from layoutdetr_tpu_torch import generate
     from layoutdetr_tpu_torch import train as train_cli
     from layoutdetr_tpu_torch.config import GeneratorConfig
+    from layoutdetr_tpu_torch.metrics import layout_fid
     from layoutdetr_tpu_torch.training import train_loop
 
-    with tempfile.TemporaryDirectory() as tmp:
-        common = ["--data", zip_path, "--batch", str(args.batch), "--bf16", "--max-text-length",
-                  "auto", "--aug", "ada", "--gamma", "1", "--pl-weight", "2", "--metrics", "none",
-                  "--seed", str(args.seed), "--snap", "1"]
-        out = os.path.join(tmp, "runs")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        zero_counters(attention, bias_act_mod)
-        t0 = time.perf_counter()
+    common = ["--data", zip_path, "--batch", str(args.batch), "--bf16", "--max-text-length",
+              "auto", "--aug", "ada", "--gamma", "1", "--pl-weight", "2",
+              "--seed", str(args.seed), "--snap", "1"]
+    out = os.path.join(tmp, "runs")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(attention, bias_act_mod)
+    t0 = time.perf_counter()
+    with counted_generation(layout_fid, {}) as gen:
         state = train_cli.main(["--outdir", out, *common, "--device-feed", "on",
                                 "--max-steps", str(RUN_STEPS)])
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        launches = counters(attention, bias_act_mod)
-        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        (run_name,) = os.listdir(out)
-        run_dir = os.path.join(out, run_name)
-        records, ticks = read_run(run_dir)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = counters(attention, bias_act_mod)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    (run_name,) = os.listdir(out)
+    run_dir = os.path.join(out, run_name)
+    records, ticks = read_run(run_dir)
 
-        # the launches: 12 attention with dropout a main step; 12
-        # deterministic a reg step, a summary forward (G, D) and an image
-        # snapshot (one a tick); 48 + 48 bias_act a main step, 48 forward in
-        # D's summary, none in a reg step
-        g_regs = len(range(0, RUN_STEPS, G_REG))
-        d_regs = len(range(0, RUN_STEPS, D_REG))
-        want = dict(fused_attention=12 * (g_regs + d_regs) + 12 * 2 + 12 * len(ticks),
-                    fused_attention_dropout=12 * RUN_STEPS, bias_act=48 * RUN_STEPS + 48,
-                    bias_act_backward=48 * RUN_STEPS)
-        if launches != want:
-            raise AssertionError(f"training run: launches {launches}, expected {want}")
-        check_ticks(records, ticks, RUN_STEPS, "training run")
-        if (sum(r.get("Loss/G/reg", {}).get("num", 0) for r in records) != g_regs
-                or sum(r.get("Loss/D/reg", {}).get("num", 0) for r in records) != d_regs):
-            raise AssertionError("training run: reg-step stats do not match the schedule")
-        ada_updates = records[-1]["ada_updates"]
-        if ada_updates != len(range(ADA_INTERVAL, RUN_STEPS, ADA_INTERVAL)):
-            raise AssertionError(f"ADA's p was updated {ada_updates} times")
-        snap = os.path.join(run_dir, f"network-snapshot-{RUN_STEPS * args.batch // 1000:06d}.pt")
-        if not (os.path.exists(snap) and os.path.exists(snap + ".gcfg.json")):
-            raise AssertionError(f"no snapshot {snap} with its .gcfg.json in {os.listdir(run_dir)}")
-        if state.step != RUN_STEPS:
-            raise AssertionError(f"state.step {state.step}")
-        with open(snap + ".gcfg.json") as f:
-            gcfg = GeneratorConfig.from_dict(json.load(f))
-        if gcfg.max_text_length != t:
-            raise AssertionError(f"the run trained at T={gcfg.max_text_length}; phase 3 checked T={t}")
+    # the launches: 12 attention with dropout a main step; 12
+    # deterministic a reg step, a summary forward (G, D), an image
+    # snapshot (one a tick) and a G_ema forward of the metric (64 val
+    # items at batch 16 a tick); 48 + 48 bias_act a main step, 48 forward
+    # in D's summary, none in a reg step
+    g_regs = len(range(0, RUN_STEPS, G_REG))
+    d_regs = len(range(0, RUN_STEPS, D_REG))
+    metric_forwards = len(ticks) * math.ceil(RUN_SAMPLES / min(16, args.batch))
+    if gen.get("forwards") != metric_forwards:
+        raise AssertionError(f"training run: {gen.get('forwards')} metric forwards, expected "
+                             f"{metric_forwards}")
+    want = dict(fused_attention=12 * (g_regs + d_regs) + 12 * 2 + 12 * len(ticks)
+                + 12 * metric_forwards,
+                fused_attention_dropout=12 * RUN_STEPS, bias_act=48 * RUN_STEPS + 48,
+                bias_act_backward=48 * RUN_STEPS)
+    if launches != want:
+        raise AssertionError(f"training run: launches {launches}, expected {want}")
+    check_ticks(records, ticks, RUN_STEPS, "training run")
+    metric_lines = read_jsonl(os.path.join(run_dir, "metric-layout_fid50k_val.jsonl"))
+    fids = [r["results"]["layout_fid50k_val"] for r in metric_lines]
+    if len(fids) != len(ticks) or not all(math.isfinite(v) for v in fids):
+        raise AssertionError(f"training run: metric lines {fids} for {len(ticks)} ticks")
+    if (sum(r.get("Loss/G/reg", {}).get("num", 0) for r in records) != g_regs
+            or sum(r.get("Loss/D/reg", {}).get("num", 0) for r in records) != d_regs):
+        raise AssertionError("training run: reg-step stats do not match the schedule")
+    ada_updates = records[-1]["ada_updates"]
+    if ada_updates != len(range(ADA_INTERVAL, RUN_STEPS, ADA_INTERVAL)):
+        raise AssertionError(f"ADA's p was updated {ada_updates} times")
+    snap = os.path.join(run_dir, f"network-snapshot-{RUN_STEPS * args.batch // 1000:06d}.pt")
+    if not (os.path.exists(snap) and os.path.exists(snap + ".gcfg.json")):
+        raise AssertionError(f"no snapshot {snap} with its .gcfg.json in {os.listdir(run_dir)}")
+    if state.step != RUN_STEPS:
+        raise AssertionError(f"state.step {state.step}")
+    with open(snap + ".gcfg.json") as f:
+        gcfg = GeneratorConfig.from_dict(json.load(f))
+    if gcfg.max_text_length != t:
+        raise AssertionError(f"the run trained at T={gcfg.max_text_length}; phase 3 checked T={t}")
 
-        # trainable parameters moved, frozen ones did not: against the same
-        # seeded init (G's frozen encoder copied into D, as the loop does)
-        G0, D0 = train_loop.init_models(gcfg, "cuda", torch.bfloat16, args.seed)
-        D0.text_encoder.load_state_dict(G0.text_encoder.state_dict())
-        frozen, moved, unmoved = 0, 0, []
-        for tag, mod, mod0 in (("G", state.G, G0), ("D", state.D, D0)):
-            init = dict(mod0.named_parameters())
-            for name, p in mod.named_parameters():
-                same = torch.equal(p.detach(), init[name].detach())
-                if not p.requires_grad:
-                    frozen += 1
-                    if not same:
-                        raise AssertionError(f"frozen {tag}.{name} moved")
-                elif not same:
-                    moved += 1
-                elif ".crossattention." not in name and not name.endswith(".key.bias"):
-                    unmoved.append(f"{tag}.{name}")
-        if unmoved or not frozen:
-            raise AssertionError(f"trainable parameters that did not move: {unmoved[:8]}")
-        del G0, D0
-        run_main_s = sum(r["main_step_s"] for r in records)
-        run_reg_s = sum(r["reg_step_s"] for r in records)
-        last = records[-1]  # tick 1: steps 1-16, after the first step's warm-up
-        rec = dict(steps=RUN_STEPS, g_reg_steps=g_regs, d_reg_steps=d_regs, ticks=len(ticks),
-                   wall_s=wall_s, sec_per_kimg=last["sec_per_kimg"],
-                   sec_per_kimg_ticks=[r["sec_per_kimg"] for r in records],
-                   main_step_s=run_main_s, reg_step_s=run_reg_s,
-                   reg_share=run_reg_s / (run_main_s + run_reg_s),
-                   reg_share_last_tick=last["reg_step_s"] / (last["main_step_s"] + last["reg_step_s"]),
-                   peak_memory_gb=peak_gb, devmem_peak_gb=max(r["devmem_peak_gb"] for r in records),
-                   launches=launches, launches_expected=want,
-                   ada_updates=ada_updates, augment_p=last["augment_p"],
-                   trainable_moved=moved, frozen_unchanged=frozen, T=gcfg.max_text_length)
-        del state
-        torch.cuda.empty_cache()
-        log(f"training run bf16 batch {args.batch} T={gcfg.max_text_length} (auto), {RUN_STEPS} "
-            f"steps + {g_regs} path-length + {d_regs} R1 steps: {rec['sec_per_kimg']:.2f} sec/kimg "
-            f"(tick 1, steps 1-16), reg steps {100 * rec['reg_share']:.1f}% of the steps' step "
-            f"time ({100 * rec['reg_share_last_tick']:.1f}% in tick 1; step time = the stream span "
-            f"between CUDA events around each step, on these host-bound steps mostly the card "
-            f"waiting on the host), peak memory {peak_gb:.2f} GiB, wall {wall_s:.1f} s  [{card}]")
-        log(f"  launches: {launches} (as expected); ADA p updated {ada_updates} times "
-            f"(p = {rec['augment_p']:.5f}); {moved} trainable tensors moved, {frozen} frozen "
-            f"unchanged")
+    # trainable parameters moved, frozen ones did not: against the same
+    # seeded init (G's frozen encoder copied into D, as the loop does)
+    G0, D0 = train_loop.init_models(gcfg, "cuda", torch.bfloat16, args.seed)
+    D0.text_encoder.load_state_dict(G0.text_encoder.state_dict())
+    frozen, moved, unmoved = 0, 0, []
+    for tag, mod, mod0 in (("G", state.G, G0), ("D", state.D, D0)):
+        init = dict(mod0.named_parameters())
+        for name, p in mod.named_parameters():
+            same = torch.equal(p.detach(), init[name].detach())
+            if not p.requires_grad:
+                frozen += 1
+                if not same:
+                    raise AssertionError(f"frozen {tag}.{name} moved")
+            elif not same:
+                moved += 1
+            elif ".crossattention." not in name and not name.endswith(".key.bias"):
+                unmoved.append(f"{tag}.{name}")
+    if unmoved or not frozen:
+        raise AssertionError(f"trainable parameters that did not move: {unmoved[:8]}")
+    del G0, D0
+    run_main_s = sum(r["main_step_s"] for r in records)
+    run_reg_s = sum(r["reg_step_s"] for r in records)
+    last = records[-1]  # tick 1: steps 1-16, after the first step's warm-up
+    rec = dict(steps=RUN_STEPS, g_reg_steps=g_regs, d_reg_steps=d_regs, ticks=len(ticks),
+               wall_s=wall_s, sec_per_kimg=last["sec_per_kimg"],
+               sec_per_kimg_ticks=[r["sec_per_kimg"] for r in records],
+               main_step_s=run_main_s, reg_step_s=run_reg_s,
+               reg_share=run_reg_s / (run_main_s + run_reg_s),
+               reg_share_last_tick=last["reg_step_s"] / (last["main_step_s"] + last["reg_step_s"]),
+               peak_memory_gb=peak_gb, devmem_peak_gb=max(r["devmem_peak_gb"] for r in records),
+               launches=launches, launches_expected=want,
+               ada_updates=ada_updates, augment_p=last["augment_p"],
+               trainable_moved=moved, frozen_unchanged=frozen, T=gcfg.max_text_length,
+               metric_layout_fid=fids, metric_total_time_s=[r["total_time"] for r in metric_lines],
+               metric_forwards=metric_forwards, snapshot=snap)
+    del state
+    torch.cuda.empty_cache()
+    log(f"training run bf16 batch {args.batch} T={gcfg.max_text_length} (auto), {RUN_STEPS} "
+        f"steps + {g_regs} path-length + {d_regs} R1 steps: {rec['sec_per_kimg']:.2f} sec/kimg "
+        f"(tick 1, steps 1-16), reg steps {100 * rec['reg_share']:.1f}% of the steps' step "
+        f"time ({100 * rec['reg_share_last_tick']:.1f}% in tick 1; step time = the stream span "
+        f"between CUDA events around each step, on these host-bound steps mostly the card "
+        f"waiting on the host), peak memory {peak_gb:.2f} GiB, wall {wall_s:.1f} s  [{card}]")
+    log(f"  launches: {launches} (as expected); ADA p updated {ada_updates} times "
+        f"(p = {rec['augment_p']:.5f}); {moved} trainable tensors moved, {frozen} frozen "
+        f"unchanged")
+    log(f"  metric layout_fid50k_val at {len(ticks)} snapshot ticks ({RUN_SAMPLES} val items, "
+        f"{metric_forwards} G_ema forwards, in the ticks' maintenance): "
+        f"{', '.join(f'{v:.4f}' for v in fids)}; total_time "
+        f"{', '.join(f'{r:.2f}' for r in rec['metric_total_time_s'])} s  [{card}]")
 
-        # resume through the host loader, the restored state checked bit for bit
-        restored: list = []
-        out2 = os.path.join(tmp, "resumed")
-        with checked_restore(torch, train_loop, restored):
-            state = train_cli.main(["--outdir", out2, *common, "--device-feed", "off", "--workers", "2",
-                                    "--max-steps", str(RESUME_STEPS), "--resume", snap])
-        records2, ticks2 = read_run(os.path.join(out2, os.listdir(out2)[0]))
-        check_ticks(records2, ticks2, RESUME_STEPS, "resumed run")
-        if restored != [RUN_STEPS] or state.step != RUN_STEPS + RESUME_STEPS:
-            raise AssertionError(f"resume: restored at step {restored}, ended at {state.step}")
-        rec["resume"] = dict(restored_step=restored[0], bit_exact=True, steps=RESUME_STEPS,
-                             sec_per_kimg=records2[-1]["sec_per_kimg"])
-        log(f"resume from {os.path.basename(snap)} (host loader, 2 workers): restored state equal to "
-            f"the snapshot bit for bit at step {restored[0]}, then {RESUME_STEPS} steps")
-        del state
-        torch.cuda.empty_cache()
+    # resume through the host loader, the restored state checked bit for bit
+    restored: list = []
+    out2 = os.path.join(tmp, "resumed")
+    with checked_restore(torch, train_loop, restored):
+        state = train_cli.main(["--outdir", out2, *common, "--metrics", "none", "--device-feed",
+                                "off", "--workers", "2", "--max-steps", str(RESUME_STEPS),
+                                "--resume", snap])
+    records2, ticks2 = read_run(os.path.join(out2, os.listdir(out2)[0]))
+    check_ticks(records2, ticks2, RESUME_STEPS, "resumed run")
+    if restored != [RUN_STEPS] or state.step != RUN_STEPS + RESUME_STEPS:
+        raise AssertionError(f"resume: restored at step {restored}, ended at {state.step}")
+    rec["resume"] = dict(restored_step=restored[0], bit_exact=True, steps=RESUME_STEPS,
+                         sec_per_kimg=records2[-1]["sec_per_kimg"])
+    log(f"resume from {os.path.basename(snap)} (host loader, 2 workers): restored state equal to "
+        f"the snapshot bit for bit at step {restored[0]}, then {RESUME_STEPS} steps")
+    del state
+    torch.cuda.empty_cache()
 
-        # one request served from the snapshot (its G_ema)
-        bg = os.path.join(tmp, "bg.png")
-        with zipfile.ZipFile(zip_path) as zf, open(bg, "wb") as f:
-            f.write(zf.read("00000000_background_orig.png"))
-        zero_counters(attention, bias_act_mod)
-        (layout,) = generate.main(["--ckpt", snap, "--bg", bg, "--strings", "summer sale|shop now",
-                                   "--string-labels", "header|button", "--device", "cuda",
-                                   "--outfile", os.path.join(tmp, "served", "banner")])
-        served = attention.LAUNCHES["fused_attention"]
-        if (counters(attention, bias_act_mod) != dict(fused_attention=12, fused_attention_dropout=0,
-                                                      bias_act=0, bias_act_backward=0)
-                or not np.isfinite(layout.bbox).all()
-                or not ((layout.raw > 0) & (layout.raw < 1)).all()):
-            raise AssertionError(f"serving from the snapshot: {served} launches, {layout.raw}")
-        rec["served"] = dict(bbox=layout.bbox[layout.mask].tolist(), launches=served)
-        log(f"served from the snapshot (generate --ckpt, G_ema): boxes "
-            f"{np.round(layout.bbox[layout.mask], 4).tolist()}, {served} attention launches")
+    # one request served from the snapshot (its G_ema)
+    bg = os.path.join(tmp, "bg.png")
+    with zipfile.ZipFile(zip_path) as zf, open(bg, "wb") as f:
+        f.write(zf.read("00000000_background_orig.png"))
+    zero_counters(attention, bias_act_mod)
+    (layout,) = generate.main(["--ckpt", snap, "--bg", bg, "--strings", "summer sale|shop now",
+                               "--string-labels", "header|button", "--device", "cuda",
+                               "--outfile", os.path.join(tmp, "served", "banner")])
+    served = attention.LAUNCHES["fused_attention"]
+    if (counters(attention, bias_act_mod) != dict(fused_attention=12, fused_attention_dropout=0,
+                                                  bias_act=0, bias_act_backward=0)
+            or not np.isfinite(layout.bbox).all()
+            or not ((layout.raw > 0) & (layout.raw < 1)).all()):
+        raise AssertionError(f"serving from the snapshot: {served} launches, {layout.raw}")
+    rec["served"] = dict(bbox=layout.bbox[layout.mask].tolist(), launches=served)
+    log(f"served from the snapshot (generate --ckpt, G_ema): boxes "
+        f"{np.round(layout.bbox[layout.mask], 4).tolist()}, {served} attention launches")
     rec["augment_on_card"] = augment_on_card(torch, np, zip_path, t, args, card)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# 10. evaluation
+# ---------------------------------------------------------------------------
+
+def random_inception_state_dict(torch, seed: int) -> dict:
+    """A full FID InceptionV3 state dict in pytorch-fid naming from seeded
+    random weights: He-normal convolutions (activations keep their scale
+    through the depth), frozen-BN statistics around identity."""
+    from layoutdetr_tpu_torch.models.inception import InceptionV3
+
+    with torch.random.fork_rng(devices=[]):
+        shapes = {k: v.shape for k, v in InceptionV3().state_dict().items()}
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, shape in shapes.items():
+        n = torch.randn(shape, generator=g)
+        if k.endswith("conv.weight"):
+            out[k] = n * math.sqrt(2.0 / math.prod(shape[1:]))
+        elif k.endswith("bn.weight"):
+            out[k] = 1.0 + 0.1 * n
+        elif k.endswith("running_var"):
+            out[k] = (1.0 + 0.1 * n).abs() + 0.5
+        else:
+            out[k] = 0.1 * n
+    return out
+
+
+@contextlib.contextmanager
+def timed_image_fid(image_fid, compositing, seen: dict):
+    """Inside, the image FID's feature calls (upload, resize, InceptionV3,
+    features back: synchronised) and its compositing calls are timed in
+    ``seen``: ``inception_s``/``inception_images``,
+    ``compositing_s``/``composited``."""
+    real_feature_fn, real_composite = image_fid._feature_fn, compositing.composite_batch
+    seen.update(inception_s=0.0, inception_images=0, compositing_s=0.0, composited=0)
+
+    def feature_fn(opts):
+        fn = real_feature_fn(opts)
+
+        def timed(imgs):
+            t0 = time.perf_counter()
+            out = fn(imgs)
+            seen["inception_s"] += time.perf_counter() - t0
+            seen["inception_images"] += len(imgs)
+            return out
+
+        return timed
+
+    def composite(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_composite(*a, **kw)
+        seen["compositing_s"] += time.perf_counter() - t0
+        seen["composited"] += len(out)
+        return out
+
+    image_fid._feature_fn, compositing.composite_batch = feature_fn, composite
+    try:
+        yield seen
+    finally:
+        image_fid._feature_fn, compositing.composite_batch = real_feature_fn, real_composite
+
+
+def features_card_vs_cpu(torch, np, args, val_path: str, t: int, inc_path: str) -> dict:
+    """LayoutNet (seeded, 8 labels) features of a batch of val layouts and
+    InceptionV3 (the phase's random weights) features of 4 real-patch
+    composites at 1024^2, on the card and on the CPU, fp32."""
+    from layoutdetr_tpu_torch.data.dataset import LayoutDataset
+    from layoutdetr_tpu_torch.metrics.compositing import composite_batch
+    from layoutdetr_tpu_torch.models.inception import load_inception_params, make_feature_fn
+    from layoutdetr_tpu_torch.models.layoutnet import LayoutNet
+
+    b = LayoutDataset(val_path, max_text_length=t, load_patches=True,
+                      load_background_orig=True).collate(list(range(args.batch)))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(args.seed)
+        net = LayoutNet(8).eval()
+    inputs = [torch.from_numpy(b[k]) for k in ("bboxes", "labels", "padding_mask")]
+    with torch.inference_mode():
+        want = net.extract_features(*inputs)
+        got = net.to("cuda").extract_features(*(x.cuda() for x in inputs)).cpu()
+    ln_err = (got - want).abs().max().item() / want.abs().max().item()
+    imgs = composite_batch(b["bboxes"][:4], b["bboxes"][:4], b["patches_orig"][:4], b["mask"][:4],
+                           b["background_orig"][:4], b["W_page"][:4], b["H_page"][:4], 1024)
+    want = make_feature_fn(load_inception_params(inc_path, "cpu"))(imgs)
+    got = make_feature_fn(load_inception_params(inc_path, "cuda"))(imgs)
+    inc_err = float(np.abs(got - want).max() / np.abs(want).max())
+    out = dict(layoutnet_rel_max_abs=ln_err, layoutnet_tol=LAYOUTNET_CPU_TOL,
+               inception_rel_max_abs=inc_err, inception_tol=INCEPTION_CPU_TOL,
+               inception_max_abs_feature=float(np.abs(want).max()))
+    log(f"card vs CPU, fp32: LayoutNet features of {args.batch} val layouts max-abs {ln_err:.3e} of max |f| "
+        f"(bar {LAYOUTNET_CPU_TOL:.0e}); InceptionV3 features of 4 composites (1024^2 -> 299^2) "
+        f"{inc_err:.3e} of max |f| = {out['inception_max_abs_feature']:.4f} (bar "
+        f"{INCEPTION_CPU_TOL:.0e})")
+    if not (ln_err <= LAYOUTNET_CPU_TOL and inc_err <= INCEPTION_CPU_TOL):
+        raise AssertionError(f"features card vs CPU: {out}")
+    return out
+
+
+def evaluation_phase(torch, np, args, card, attention, bias_act_mod, tmp: str, snap: str,
+                     val_path: str, t: int) -> dict:
+    """Slice 4's main path, ``python -m layoutdetr_tpu_torch.evaluate``
+    through ``evaluate.main`` on the val.zip: (a) the training run's last
+    snapshot (T=``t``), all four metrics, with a random full InceptionV3;
+    (b) a full-width fp32 Generator at T=256 from --seed, the layout FID
+    and the layout suite. Counts from 0 before, read after."""
+    from layoutdetr_tpu_torch import evaluate
+    from layoutdetr_tpu_torch.config import GeneratorConfig
+    from layoutdetr_tpu_torch.generate import save_generator
+    from layoutdetr_tpu_torch.metrics import compositing, image_fid, layout_fid, metric_main
+    from layoutdetr_tpu_torch.models.generator import Generator
+
+    inc_path = os.path.join(tmp, "pt_inception.pth")
+    torch.save(random_inception_state_dict(torch, args.seed), inc_path)
+    torch.manual_seed(args.seed)
+    with torch.device("cuda"):
+        wide = Generator(GeneratorConfig())
+    wide_path = os.path.join(tmp, "g_t256.pt")
+    save_generator(wide, wide_path)
+    del wide
+    torch.cuda.empty_cache()
+
+    runs = (("a", snap, metric_main.list_valid_metrics(), EVAL_ITEMS, ["--inception-ckpt", inc_path]),
+            ("b", wide_path, ["layout_fid50k_val", SUITE], EVAL_WIDE_ITEMS, []))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(attention, bias_act_mod)
+    out, timing, forwards = {}, {}, 0
+    t0 = time.perf_counter()
+    with timed_image_fid(image_fid, compositing, timing), contextlib.chdir(tmp):
+        for tag, ckpt, metrics, items, extra in runs:
+            run_dir = os.path.join(tmp, f"eval_{tag}")
+            os.makedirs(run_dir)
+            with counted_generation(layout_fid, {}) as gen:
+                results = evaluate.main(["--ckpt", ckpt, "--data", val_path, "--metrics",
+                                         ",".join(metrics), "--batch", str(args.batch),
+                                         "--max-items", str(items), "--run-dir", run_dir,
+                                         "--seed", str(args.seed), "--device", "cuda", *extra])
+            want_forwards = len(metrics) * math.ceil(items / args.batch)
+            if gen.get("forwards") != want_forwards:
+                raise AssertionError(f"evaluation ({tag}): {gen.get('forwards')} G_ema forwards, "
+                                     f"expected {want_forwards}")
+            forwards += want_forwards
+            values = {f"{r['metric']}/{k}": v for r in results for k, v in r["results"].items()
+                      if not isinstance(v, str)}
+            lines = {m: read_jsonl(os.path.join(run_dir, f"metric-{m}.jsonl")) for m in metrics}
+            if ([r["metric"] for r in results] != metrics or not all(map(math.isfinite, values.values()))
+                    or any(len(v) != 1 for v in lines.values())):
+                raise AssertionError(f"evaluation ({tag}): {values}, jsonl lines "
+                                     f"{ {m: len(v) for m, v in lines.items()} }")
+            out[tag] = dict(ckpt=os.path.basename(ckpt), items=items, values=values,
+                            total_time_s={r["metric"]: r["total_time"] for r in results},
+                            forwards=want_forwards, layouts=gen["layouts"], generation_s=gen["s"],
+                            layouts_per_s=gen["layouts"] / gen["s"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = counters(attention, bias_act_mod)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = dict(fused_attention=12 * forwards, fused_attention_dropout=0, bias_act=0,
+                bias_act_backward=0)
+    if launches != want:
+        raise AssertionError(f"evaluation: launches {launches} in {forwards} G_ema forwards, "
+                             f"expected {want}")
+    rendered = out["a"]["values"]["rendering_val/rendering_val"]
+    counts = [sum(n.endswith("_vis.png") for n in os.listdir(os.path.join(tmp, "rendered_val", d)))
+              for d in ("rendering_fake", "rendering_real")]
+    if counts != [rendered, rendered] or not rendered:
+        raise AssertionError(f"rendering_val: {rendered} reported, fake/real banners {counts}")
+    rec = dict(runs=out, launches=launches, launches_expected=want, forwards=forwards,
+               rendered=rendered, peak_memory_gb=peak_gb, wall_s=wall_s,
+               inception_images_per_s=timing["inception_images"] / timing["inception_s"],
+               inception_images=timing["inception_images"],
+               compositing_ms_per_image=1e3 * timing["compositing_s"] / timing["composited"],
+               composited=timing["composited"])
+    for tag, r in out.items():
+        log(f"evaluation ({tag}) {r['ckpt']} on {r['items']} val items, batch {args.batch}: "
+            + ", ".join(f"{k} {v:.5g}" for k, v in r["values"].items()))
+        log(f"  total_time (s): " + ", ".join(f"{k} {v:.2f}" for k, v in r["total_time_s"].items())
+            + f"; {r['layouts_per_s']:.1f} layouts/s generated ({r['forwards']} G_ema forwards, "
+              f"host clock around each batch)  [{card}]")
+    log(f"evaluation: InceptionV3 {rec['inception_images_per_s']:.1f} images/s "
+        f"({rec['inception_images']} 1024^2 composites: upload, resize, network), host compositing "
+        f"{rec['compositing_ms_per_image']:.2f} ms an image; {rendered} banners rendered (fake = real); "
+        f"peak memory {peak_gb:.2f} GiB; wall {wall_s:.1f} s; launches {launches} = 12 x {forwards} "
+        f"G_ema forwards  [{card}]")
+    rec["card_vs_cpu"] = features_card_vs_cpu(torch, np, args, val_path, t, inc_path)
     return rec
 
 
@@ -1236,12 +1523,14 @@ def main() -> int:
     # the training run's dataset, made first: its --max-text-length auto
     # bucket sets the run's attention shapes, which phase 3 checks
     workdir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
-    zip_path, run_t = run_dataset(workdir.name, args.seed)
-    log(f"training-run dataset: 64 samples, --max-text-length auto -> T={run_t}")
+    zip_path, val_path, run_t = run_dataset(workdir.name, args.seed)
+    log(f"training-run dataset: {RUN_SAMPLES} samples (and a val.zip of as many), "
+        f"--max-text-length auto -> T={run_t}")
 
     # 3. kernels vs plain
     shapes = list(dict.fromkeys(serving_attention_shapes(args.batch)
-                                + run_attention_shapes(args.batch, run_t)))
+                                + run_attention_shapes(args.batch, run_t)
+                                + eval_attention_shapes(args.batch, run_t)))
     attn_cases = attention_phase(torch, attention, args.seed, shapes)
     cfg = GeneratorConfig()
     torch.manual_seed(args.seed)
@@ -1358,12 +1647,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 9. the training run, slice 3's main path
-    run = training_run_phase(torch, np, args, card, attention, bias_act_mod, zip_path, run_t)
+    run = training_run_phase(torch, np, args, card, attention, bias_act_mod, workdir.name,
+                             zip_path, run_t)
+
+    # 10. evaluation, slice 4's main path
+    evaluation = evaluation_phase(torch, np, args, card, attention, bias_act_mod, workdir.name,
+                                  run["snapshot"], val_path, run_t)
     workdir.cleanup()
 
-    kernels = kernel_records(attn_cases, bias_cases, serve_launches, train, run)
+    kernels = kernel_records(attn_cases, bias_cases, serve_launches, train, run, evaluation)
     log(json.dumps({"serving": serving, "train": train, "step_correctness": correctness,
-                    "training_run": run,
+                    "training_run": run, "evaluation": evaluation,
                     "model_max_abs": err, "model_bf16_max_abs": err_bf16,
                     "model_bf16_vs_fp32_max_abs": err_bf16_fp32, "cpu_max_abs": err_cpu,
                     "attention_cases": attn_cases, "bias_act_cases": bias_cases,
@@ -1459,13 +1753,16 @@ def largest_lrelu(cases: list) -> dict:
     return out
 
 
-def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run: dict) -> list:
+def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run: dict,
+                   evaluation: dict) -> list:
     """The kernels line: each kernel at its representative case (fp32,
     T=256 for attention; one fp32 step's 48 bias_act calls summed), with
     the launches of each main path that runs it (``launches_by_path``) and
     their sum. Attention's two forms count apart: the dropout form under
     fused_attention_dropout (the train step's and the training run's main
-    steps), the deterministic one under fused_attention."""
+    steps), the deterministic one under fused_attention (serving, the
+    training run's reg steps, summaries, previews and metric ticks, and the
+    evaluation)."""
     def attn(rate):
         return next(c for c in attn_cases if c["dtype"] == "float32" and c["shape"][2] == 256
                     and c["dropout_rate"] == rate)
@@ -1477,6 +1774,7 @@ def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run
         if train_launches:
             by_path[k]["train_step"] = train_launches
         by_path[k]["training_run"] = run["launches"][k]
+    by_path["fused_attention"]["evaluation"] = evaluation["launches"]["fused_attention"]
     src = "layoutdetr_tpu_torch/ops/csrc/"
     out = []
     for name, rate in (("fused_attention", 0.0), ("fused_attention_dropout", DROPOUT)):

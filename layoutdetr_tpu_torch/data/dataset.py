@@ -9,8 +9,10 @@ per-element PNGs), the same decode products and the same index stream:
   ``text_mask``, ``text_len``), boxes, labels, validity mask and the
   background resized with PIL LANCZOS and ImageNet-normalized, channels
   last. Decoded backgrounds and tokens are kept in a RAM cache
-  (``warm_cache``) so a run decodes each PNG once. Patches are not read:
-  the losses never use them.
+  (``warm_cache``) so a run decodes each PNG once. Patches and the
+  full-resolution background are off by default (the losses never read
+  them); ``load_patches`` and ``load_background_orig`` decode them for the
+  image FID and the rendering, and the latter bypasses the cache.
 - ``InfiniteSampler``: the rank-strided, epoch-shuffled stream with a
   sliding-window swap.
 - ``PrefetchLoader``: collated numpy batches prefetched by one thread or
@@ -63,11 +65,14 @@ class LayoutDataset:
     def __init__(self, path: str, background_size: int = 256, max_text_length: int = 256,
                  max_size: Optional[int] = None, tokenizer: Optional[LayoutTokenizer] = None,
                  random_seed: int = 0, text_len_clip: Optional[int] = None, cache="auto",
-                 cache_gb: Optional[float] = None):
+                 cache_gb: Optional[float] = None, load_patches: bool = False,
+                 load_background_orig: bool = False):
         if not path.endswith(".zip"):
             raise IOError("Path must point to a zip")
         self._path = path
         self.background_size = background_size
+        self.load_patches = load_patches
+        self.load_background_orig = load_background_orig
         self.tokenizer = tokenizer or LayoutTokenizer(max_length=max_text_length,
                                                       length_clip=text_len_clip)
         self._local = threading.local()
@@ -88,7 +93,8 @@ class LayoutDataset:
                       + MAX_ELEMENTS * (self.tokenizer.max_length * 8 + 4) + 512)
         fits = len(self._raw_idx) * per_sample <= cache_gb * 2 ** 30
         if cache == "auto":
-            cache = fits
+            # the full-resolution background is decoded anyway: no cache
+            cache = fits and not load_background_orig
         elif cache and not fits:
             raise ValueError(f"sample cache needs ~{len(self._raw_idx) * per_sample / 2 ** 30:.1f} GB "
                              f"but cache_gb={cache_gb}; raise LAYOUTDETR_CACHE_GB or pass cache=False")
@@ -115,18 +121,22 @@ class LayoutDataset:
                 mx = max(mx, self.tokenizer.token_count(s))
         return mx
 
-    def _decode_static(self, raw_idx: int) -> dict:
+    def _decode_static(self, raw_idx: int, keep_orig: bool = False) -> dict:
         """The decode products worth caching: the resized uint8 background
-        and the fixed-shape token arrays."""
+        and the fixed-shape token arrays; with ``keep_orig`` also the
+        full-resolution background ``bg_orig``."""
         import PIL.Image
 
         base_fname, meta = self._samples[raw_idx]
         texts = list(meta["texts"]) + [""] * (MAX_ELEMENTS - len(meta["labels"]))
         text_ids, text_mask, text_len = self.tokenizer.encode_batch(texts)
         with self._zip().open(base_fname + "_background_orig.png") as f:
-            bg_u8 = np.array(PIL.Image.open(f).resize((self.background_size,) * 2,
-                                                      PIL.Image.LANCZOS))
-        return dict(bg_u8=bg_u8, text_ids=text_ids, text_mask=text_mask, text_len=text_len)
+            img = PIL.Image.open(f)
+            bg_u8 = np.array(img.resize((self.background_size,) * 2, PIL.Image.LANCZOS))
+            out = dict(bg_u8=bg_u8, text_ids=text_ids, text_mask=text_mask, text_len=text_len)
+            if keep_orig:
+                out["bg_orig"] = np.array(img)
+        return out
 
     def static(self, raw_idx: int) -> dict:
         """``_decode_static`` through the cache."""
@@ -166,12 +176,21 @@ class LayoutDataset:
         labels[:n_real] = np.asarray(meta["labels"], np.int64)
         return bboxes, labels, np.arange(MAX_ELEMENTS) < n_real
 
+    def _read_image(self, fname: str) -> np.ndarray:
+        import PIL.Image
+
+        with self._zip().open(fname) as f:
+            return np.array(PIL.Image.open(f))
+
     def __getitem__(self, idx: int) -> dict:
         raw_idx = int(self._raw_idx[idx])
-        meta = self._samples[raw_idx][1]
+        base_fname, meta = self._samples[raw_idx]
         bboxes, labels, mask = self.layout(raw_idx)
-        static = self.static(raw_idx)
-        return dict(
+        if self.load_background_orig:  # one decode gives both; bypasses the cache
+            static = self._decode_static(raw_idx, keep_orig=True)
+        else:
+            static = self.static(raw_idx)
+        out = dict(
             name=meta["attr"]["name"], W_page=meta["attr"]["width"], H_page=meta["attr"]["height"],
             bboxes=bboxes, labels=labels,
             texts=list(meta["texts"]) + [""] * (MAX_ELEMENTS - len(meta["labels"])),
@@ -179,11 +198,43 @@ class LayoutDataset:
             text_len=static["text_len"], mask=mask, padding_mask=~mask,
             background=normalize_image(static["bg_u8"]),
         )
+        if self.load_background_orig:
+            out["background_orig"] = normalize_image(static["bg_orig"])
+        if self.load_patches:
+            out.update(self._load_patches(base_fname, len(meta["labels"])))
+        return out
+
+    def _load_patches(self, base_fname: str, n_real: int) -> dict:
+        """``patches_orig``: the elements' original patches [9, Hp, Wp, 3]
+        (dataset_layoutganpp.py:281-328), ImageNet-normalized, zero past the
+        real elements (1024^2 when the layout has none). The image FID's
+        compositing reads nothing else of the patches."""
+        patches_orig = None
+        for i in range(n_real):
+            orig = self._read_image(f"{base_fname}_{i}_patch_orig.png")
+            if patches_orig is None:
+                patches_orig = np.zeros((MAX_ELEMENTS,) + orig.shape, np.float32)
+            patches_orig[i] = normalize_image(orig)
+        if patches_orig is None:
+            patches_orig = np.zeros((MAX_ELEMENTS, 1024, 1024, 3), np.float32)
+        return dict(patches_orig=patches_orig)
 
     def collate(self, indices) -> dict:
-        """Stack samples into a batch of numpy arrays (no strings)."""
+        """Stack samples into a batch of numpy arrays (no strings); with
+        ``load_patches`` also ``patches_orig``, with
+        ``load_background_orig`` also ``background_orig`` and the page sizes
+        ``W_page``/``H_page``."""
         items = [self[i] for i in indices]
-        return {key: np.stack([it[key] for it in items]) for key in BATCH_KEYS}
+        keys = list(BATCH_KEYS)
+        if self.load_patches:
+            keys.append("patches_orig")
+        if self.load_background_orig:
+            keys.append("background_orig")
+        batch = {key: np.stack([it[key] for it in items]) for key in keys}
+        if self.load_background_orig:
+            for key in ("W_page", "H_page"):
+                batch[key] = np.array([it[key] for it in items], np.int64)
+        return batch
 
 
 def to_device(host_batch: dict, device) -> dict:

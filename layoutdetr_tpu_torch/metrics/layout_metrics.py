@@ -1,10 +1,13 @@
-"""Layout geometry losses as torch functions (the loss math of the GAN step).
+"""Layout geometry losses and metrics.
 
 Counterpart of ``layoutdetr_tpu/metrics/layout_metrics.py`` (reference
-metrics/metric_layoutnet.py:153-275, util.py convert_xywh_to_ltrb), the
-functions the training losses call. Every function takes a fixed
-``[B, N]`` validity mask and reduces over static shapes, as the JAX
-ones do.
+metrics/metric_layoutnet.py:66-275, util.py convert_xywh_to_ltrb). The
+torch functions are the loss math of the GAN step; every one takes a
+fixed ``[B, N]`` validity mask and reduces over static shapes, as the JAX
+ones do. The evaluation suite also runs ``compute_overlap`` and
+``compute_alignment`` on float64 CPU tensors. ``compute_iou`` and
+``compute_docsim_weight`` take paired boxes [N, 4] in numpy: the host path
+the evaluation suite uses (JAX's ``xp=np``).
 
 - ``bbox``: ``[..., 4]`` as ``[xc, yc, w, h]`` normalized to [0, 1].
 - ``mask``: bool, True = **valid** element.
@@ -12,6 +15,7 @@ ones do.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -100,6 +104,35 @@ def generalized_iou_loss(bbox_pred, bbox_tgt, mask=None):
         return per_elem.mean()
     m = mask.to(per_elem.dtype)
     return torch.where(mask, per_elem, 0.0).sum() / m.sum().clamp(min=1.0)
+
+
+def compute_iou(box_1: np.ndarray, box_2: np.ndarray) -> np.ndarray:
+    """Elementwise IoU of paired boxes [N, 4] on the host, numpy
+    (metric_layoutnet.py:66-92; JAX ``compute_iou(..., xp=np)``)."""
+    l1, t1, r1, b1 = convert_xywh_to_ltrb(box_1.T)
+    l2, t2, r2, b2 = convert_xywh_to_ltrb(box_2.T)
+    a1, a2 = (r1 - l1) * (b1 - t1), (r2 - l2) * (b2 - t2)
+
+    l_max = np.maximum(l1, l2)
+    r_min = np.minimum(r1, r2)
+    t_max = np.maximum(t1, t2)
+    b_min = np.minimum(b1, b2)
+    cond = (l_max < r_min) & (t_max < b_min)
+    ai = np.where(cond, (r_min - l_max) * (b_min - t_max), 0.0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        iou = ai / (a1 + a2 - ai)
+    return np.nan_to_num(iou, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+def compute_docsim_weight(box_1: np.ndarray, box_2: np.ndarray) -> np.ndarray:
+    """DocSim pairing weight of paired boxes [N, 4] on the host, numpy
+    (metric_layoutnet.py:204-221)."""
+    xc1, yc1, w1, h1 = box_1.T
+    xc2, yc2, w2, h2 = box_2.T
+    location_difference = ((xc1 - xc2) ** 2 + (yc1 - yc2) ** 2) ** 0.5
+    shape_difference = np.abs(w1 - w2) + np.abs(h1 - h2)
+    area_factor = np.minimum(w1 * h1, w2 * h2) ** 0.5
+    return area_factor * 2 ** (-location_difference - 2.0 * shape_difference)
 
 
 def masked_mse(pred, tgt, mask):

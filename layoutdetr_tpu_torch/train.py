@@ -12,8 +12,9 @@ snapshots and exits. argparse instead of click. Differences:
 
 - ``--device`` (default ``cuda``): where the run trains; ``cpu`` only
   when asked for;
-- ``--metrics`` accepts only ``none`` (its default here) until the port
-  has the metrics;
+- ``--metrics`` (default ``layout_fid50k_val``) runs at snapshot ticks,
+  every ``--metric-ticks``, on G_ema where it lives (``make_metrics_fn``);
+  ``--layoutnet-ckpt`` is a torch state dict;
 - one GPU: ``--chips``/``--gpus`` and ``--model-parallel`` above 1 raise,
   and so do ``--backbone vit`` and ``--load-patches`` (ROADMAP Queue A);
 - ``--remat`` is accepted and does nothing: batch 16 fits an 80 GB card.
@@ -136,11 +137,16 @@ def build_parser() -> argparse.ArgumentParser:
     add("--backbone", choices=["resnet50", "vit"], default="resnet50")
     # misc settings
     add("--desc", default=None)
-    add("--metrics", type=parse_comma_separated_list, default="none",
-        help="only 'none' until the port has the metrics (ROADMAP Queue A item 17)")
-    add("--metric-ticks", type=pos_int, default=1)
-    add("--layoutnet-ckpt", default=None)
-    add("--inception-ckpt", default=None)
+    add("--metrics", type=parse_comma_separated_list, default="layout_fid50k_val",
+        help="metrics run on the val set at snapshot ticks (comma-separated, or 'none'); "
+             "val.zip beside train.zip, else the training zip")
+    add("--metric-ticks", type=pos_int, default=1,
+        help="run the metrics on every Nth network snapshot only")
+    add("--layoutnet-ckpt", default=None,
+        help="LayoutNet torch state dict for reference-scale layout FID; seed-0 random otherwise")
+    add("--inception-ckpt", default=None,
+        help="InceptionV3 weights (torch .pth in pytorch-fid naming, or a JAX .npz) for "
+             "reference-scale image FID")
     add("--kimg", dest="total_kimg", type=pos_int, default=25000)
     add("--tick", dest="kimg_per_tick", type=pos_int, default=1)
     add("--snap", type=pos_int, default=100)
@@ -185,10 +191,43 @@ def _check_supported(ap: argparse.ArgumentParser, opts) -> None:
         ap.error("more than one GPU waits for ROADMAP Queue A item 19 (multi-GPU)")
     if opts.backbone != "resnet50":
         ap.error("--backbone vit waits for ROADMAP Queue A item 19")
-    if opts.metrics:
-        ap.error("--metrics: only 'none' until the metrics are ported (ROADMAP Queue A item 17)")
+    from layoutdetr_tpu_torch.metrics import metric_main
+
+    for m in opts.metrics:
+        if not metric_main.is_valid_metric(m):
+            ap.error(f"unknown metric {m}; valid: {metric_main.list_valid_metrics()}")
     if opts.load_patches:
         ap.error("--load-patches is not ported (ROADMAP Queue A)")
+
+
+def make_metrics_fn(opts, gcfg: GeneratorConfig, run_dir: str):
+    """The metrics at snapshot ticks (JAX train.py:299-349, reference
+    training_loop.py:413-427): ``opts.metrics`` on ``val.zip`` beside
+    ``train.zip`` (else the training zip), tokenized at the run's T and
+    char-length table, batch ``min(16, batch)``, on ``state.G_ema`` where
+    it lives; each result appended to ``<run_dir>/metric-<name>.jsonl``."""
+    from layoutdetr_tpu_torch.data.dataset import LayoutDataset
+    from layoutdetr_tpu_torch.evaluate import load_layoutnet_state_dict
+    from layoutdetr_tpu_torch.metrics import metric_main
+
+    val_path = opts.data.replace("train.zip", "val.zip")
+    if not os.path.exists(val_path):
+        print(f"(no {val_path}; evaluating metrics on the training zip)")
+        val_path = opts.data
+    val_dataset = LayoutDataset(val_path, background_size=gcfg.background_size,
+                                max_text_length=gcfg.max_text_length,
+                                text_len_clip=gcfg.text_len_table)
+    layoutnet = load_layoutnet_state_dict(opts.layoutnet_ckpt) if opts.layoutnet_ckpt else None
+
+    def metrics_fn(state, snap_path: str, cur_nimg: int) -> None:
+        for m in opts.metrics:
+            result = metric_main.calc_metric(
+                m, G=state.G_ema, dataset=val_dataset, layoutnet_params=layoutnet,
+                inception_params=opts.inception_ckpt, batch=min(16, opts.batch_size),
+                seed=opts.seed)
+            metric_main.report_metric(result, run_dir=run_dir, snapshot_path=snap_path)
+
+    return metrics_fn
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -262,6 +301,7 @@ def main(argv: Optional[Sequence[str]] = None):
     from layoutdetr_tpu_torch.utils.logging import Logger
     from layoutdetr_tpu_torch.utils.misc import enable_stack_dumps
 
+    metrics_fn = make_metrics_fn(opts, gcfg, run_dir) if opts.metrics else None
     enable_stack_dumps()
     # SIGTERM finishes the tick, snapshots and exits; a second one kills.
     term = {"requested": False}
@@ -287,7 +327,8 @@ def main(argv: Optional[Sequence[str]] = None):
             init_g=opts.init_g, init_d=opts.init_d, num_workers=opts.workers,
             device_feed=opts.device_feed, max_steps=opts.max_steps, aug=opts.aug,
             aug_p=opts.aug_p, aug_geom=opts.aug_geom, ada_target=opts.ada_target,
-            ema_rampup=0.05, ada_kimg=500.0, abort_fn=lambda: term["requested"], device=device)
+            ema_rampup=0.05, ada_kimg=500.0, abort_fn=lambda: term["requested"], device=device,
+            metrics_fn=metrics_fn, metric_ticks=opts.metric_ticks)
     finally:
         logger.close()
         signal.signal(signal.SIGTERM, old_handler)

@@ -18,7 +18,9 @@ Counterpart of ``layoutdetr_tpu/training/train_loop.py:178-650``
   ``ada.interval`` batches from the mean sign of D's real logits;
 - ticks every ``kimg_per_tick``: the status line, ``stats.jsonl``,
   TensorBoard scalars, G_ema layout previews and network snapshots
-  (``network-snapshot-<kimg>.pt`` with ``.gcfg.json`` beside it);
+  (``network-snapshot-<kimg>.pt`` with ``.gcfg.json`` beside it), then
+  ``metrics_fn`` on every ``metric_ticks``-th snapshot (the tick's
+  maintenance, outside the sec/kimg clock);
 - ``abort_fn`` (the CLI's SIGTERM) ends the run after the tick's
   snapshot; ``max_steps`` caps the steps; a resumed run turns the EMA
   ramp-up off and caps ``ada_kimg`` at 100 (reference train.py:290-292).
@@ -214,8 +216,12 @@ def training_loop(
     num_workers: Optional[int] = None,
     device_feed="auto",
     device="cuda",
+    metrics_fn: Optional[Callable] = None,
+    metric_ticks: int = 1,
 ) -> GANTrainState:
-    """Run GAN training on ``device``; returns the final state."""
+    """Run GAN training on ``device``; returns the final state.
+    ``metrics_fn(state, snapshot_path, cur_nimg)`` runs after a network
+    snapshot, on every ``metric_ticks``-th one and the last."""
     start_time = time.time()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -296,6 +302,7 @@ def training_loop(
     tick_start_time = time.time()
     maintenance_time = 0.0
     batch_idx = 0
+    snap_count = 0
 
     ada = None
     ada_signs: list = []
@@ -387,6 +394,11 @@ def training_loop(
                 snap_path = os.path.join(run_dir, f"network-snapshot-{cur_nimg // 1000:06d}.pt")
                 save_checkpoint(snap_path, state)
                 write_gcfg(snap_path, gcfg)
+                # synchronous, as the reference's (training_loop.py:413-427),
+                # in the tick's maintenance: outside the sec/kimg clock
+                if metrics_fn is not None and (done or snap_count % metric_ticks == 0):
+                    metrics_fn(state, snap_path, cur_nimg)
+                snap_count += 1
 
             cur_tick += 1
             tick_start_nimg = cur_nimg

@@ -3,7 +3,9 @@
 ``generator_state_dict_from_jax`` and ``discriminator_state_dict_from_jax``
 take the JAX Generator's / Discriminator's parameters (the ``params``
 tree of ``init`` or of an orbax checkpoint, as nested dicts of numpy
-arrays) and return a ``state_dict`` that the port module's
+arrays), ``layoutnet_state_dict_from_jax`` and
+``inception_state_dict_from_jax`` those of the metric networks, and
+return a ``state_dict`` that the port module's
 ``load_state_dict(..., strict=True)`` accepts, under the reference's
 networks_detr names. Conventions converted (the inverse of the JAX
 package's torch converter):
@@ -288,4 +290,38 @@ def discriminator_state_dict_from_jax(params: dict, cfg: GeneratorConfig) -> Dic
                       "dec_transformer_uncond", cfg.reconst_decoder_layers)
     for name in ("bbox_embed_uncond", "fc_out_cls_uncond"):
         c.dense(name, name)
+    return c.finish()
+
+
+def layoutnet_state_dict_from_jax(params: dict, num_layers: int = 4) -> Dict[str, torch.Tensor]:
+    """JAX ``LayoutNet`` params -> port ``LayoutNet`` state dict, under the
+    reference's names: ``emb_label_table`` -> ``emb_label.weight``,
+    ``pos_token`` [50, D] -> [50, 1, D], ``enc_transformer/layers_{i}`` ->
+    ``enc_transformer.core.layers.{i}``, ``dec_layers_{i}`` ->
+    ``dec_transformer.layers.{i}``."""
+    c = JaxParams(params)
+    c.put("emb_label.weight", c.take("emb_label_table"))
+    c.put("pos_token", c.take("pos_token")[:, None, :])
+    for name in ("fc_bbox", "enc_fc_in", "fc_out_disc", "dec_fc_in", "fc_out_cls", "fc_out_bbox"):
+        c.dense(name, name)
+    c.put("enc_transformer.token", c.take("enc_transformer/token"))
+    for i in range(num_layers):
+        c.torch_encoder_layer(f"enc_transformer/layers_{i}", f"enc_transformer.core.layers.{i}")
+        c.torch_encoder_layer(f"dec_layers_{i}", f"dec_transformer.layers.{i}")
+    return c.finish()
+
+
+def inception_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """JAX ``InceptionV3`` params -> port ``InceptionV3`` state dict in
+    pytorch-fid naming: each ``BasicConv2d`` ``<block>[/<branch>]`` with
+    ``conv`` (HWIO) and ``bn_weight``/``bn_bias``/``bn_mean``/``bn_var``
+    becomes ``<block>[.<branch>].conv.weight`` (OIHW) and
+    ``.bn.weight/bias/running_mean/running_var``."""
+    c = JaxParams(params)
+    for src in sorted({path.rsplit("/", 1)[0] for path in c.flat}):
+        dst = src.replace("/", ".")
+        c.conv(src, f"{dst}.conv", leaf="conv")
+        for jax_leaf, leaf in (("bn_weight", "weight"), ("bn_bias", "bias"),
+                               ("bn_mean", "running_mean"), ("bn_var", "running_var")):
+            c.put(f"{dst}.bn.{leaf}", c.take(f"{src}/{jax_leaf}"))
     return c.finish()

@@ -131,8 +131,8 @@ def test_abort_fn_snapshots_and_stops(data, tmp_path):
 
 
 def test_cli_options_match_the_jax_cli():
-    """Every option of the JAX package's click command, with its default,
-    but --metrics (only 'none' here) and the port's --device."""
+    """Every option of the JAX package's click command, with its default
+    (--metrics layout_fid50k_val included), but the port's --device."""
     import train as jax_train  # the JAX package's CLI at the repo root
 
     ap = port_train.build_parser()
@@ -141,16 +141,16 @@ def test_cli_options_match_the_jax_cli():
         return None if type(p.default).__name__ == "Sentinel" else p.default
 
     theirs = {opt: default(p) for p in jax_train.main.params for opt in p.opts + p.secondary_opts}
-    skip = {"--metrics", "--device"}
+    skip = {"--device"}
     assert set(ours) - skip == set(theirs) - skip
     for opt, default in theirs.items():
         if opt not in skip:
             assert ours[opt] == default, (opt, ours[opt], default)
-    assert ours["--device"] == "cuda" and ours["--metrics"] == "none"
+    assert ours["--device"] == "cuda" and ours["--metrics"] == "layout_fid50k_val"
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--metrics", "fid50k"], "only 'none'"),
+    (["--metrics", "fid50k"], "unknown metric fid50k"),
     (["--chips", "2"], "item 19"),
     (["--gpus", "4"], "item 19"),
     (["--model-parallel", "2"], "item 19"),
@@ -167,7 +167,8 @@ def test_cli_refuses_what_waits(argv, message, data, tmp_path, capsys):
 
 def test_cli_dry_run_resolves_auto_text_length(data, tmp_path, capsys):
     assert port_train.main(["--outdir", str(tmp_path), "--data", data, "--batch", "2", "--device",
-                            "cpu", "--max-text-length", "auto", "--dry-run"]) is None
+                            "cpu", "--max-text-length", "auto", "--metrics", "none",
+                            "--dry-run"]) is None
     out = capsys.readouterr().out
     assert "-> T=16" in out and "Dry run" in out and not os.listdir(tmp_path)
 
