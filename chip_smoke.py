@@ -27,8 +27,10 @@ Phases (any failure ends the run with a non-zero exit and no result):
      run at its auto bucket T (16 on its zip, a partial 64-key chunk):
      rows B*9 (main and R1 steps, the metric ticks), (B/2)*9 (path
      length), 9 (module summaries, the served request) and 36 (image
-     snapshot), and the evaluation (rows B*9 and the last partial batch's,
-     at T=16 and T=256); fp32 and bf16, key padding down to length 2;
+     snapshot), the evaluation (rows B*9 and the last partial batch's,
+     at T=16 and T=256) and the HTTP server (rows 5*9 = 45 at T=256; the
+     bench's shapes are the train step's and serving's); fp32 and bf16, key
+     padding down to length 2;
      deterministic, and with dropout 0.1 against the plain version with
      the same Philox keep mask; each case's share of its bound and its
      time over sdpa's;
@@ -103,7 +105,26 @@ Phases (any failure ends the run with a non-zero exit and no result):
    ``generate_layouts``). Then LayoutNet and Inception features on the card
    against the CPU (fp32, same inputs). Printed: each metric's
    ``total_time``, layouts generated a second, Inception images a second,
-   host compositing ms an image and peak memory.
+   host compositing ms an image and peak memory;
+11. HTTP serving (slice 5's serving path): the port's stdlib server
+   (``serving.api_server.make_server``) in a thread on 127.0.0.1, on phase
+   10 (b)'s full-width fp32 ``save_generator`` file (T=256): POST /upload
+   of a 1024^2 PNG, two POST /prediction of 5 banners (1-9 and 9 elements)
+   with the launch counts set to 0 before each and read after (12
+   deterministic attention launches each), POST /update on a returned
+   page, GET and POST /save, an unknown route (404). Checks: one
+   checkpoint load, 5 seeds ranked by ascending overlap, every image and
+   HTML file written. Printed: each request's host latency split into the
+   forward (CUDA events), the rendering (host clock around
+   ``visualize_banner``) and the rest;
+12. the bench (slice 5's measurement path): ``python -m
+   layoutdetr_tpu_torch.bench`` through ``bench.main`` with its defaults
+   (bf16, T=256, batch 16, 2 + 6 + 24 steps), then ``--infer``, with the
+   launch counts set to 0 before and read after each: 12 dropout attention
+   and 48 + 48 bias_act launches a step (and 48 + 48 in its FLOP-count
+   step, which runs plain attention), 12 deterministic attention launches
+   a forward. Each JSON line is parsed and printed; FLOPs an image (beside
+   JAX's 1.932e12), MFU against the H100's peak and peak memory.
 
 The last three lines of standard output are the kernels JSON, the card
 (nvidia-smi name, power limit) and ``{"ok": true, "device": {...}}``.
@@ -188,6 +209,7 @@ LABELS = ("header", "pre-header", "post-header", "body text", "disclaimer / foot
 LAYOUTNET_CPU_TOL = 1e-4  # of max |feature|
 INCEPTION_CPU_TOL = 1e-3  # of max |feature|
 EVAL_ITEMS, EVAL_WIDE_ITEMS = 64, 40  # phase 10 (a) and (b); 40 = 2 x 16 + a partial 8
+SERVE_RESULTS = 5  # banners a /prediction (the JAX server's default numResults), phase 11
 SUITE = "overlap50k_alignment50k_layoutwise_iou50k_layoutwise_docsim50k_val"
 TRAIN_VARIANTS = (("bfloat16", 256), ("float32", 256), ("bfloat16", 64))
 RANGES = ("train_step.", "Optimizer.")  # profiler range names, not kernels
@@ -1446,7 +1468,7 @@ def evaluation_phase(torch, np, args, card, attention, bias_act_mod, tmp: str, s
     if counts != [rendered, rendered] or not rendered:
         raise AssertionError(f"rendering_val: {rendered} reported, fake/real banners {counts}")
     rec = dict(runs=out, launches=launches, launches_expected=want, forwards=forwards,
-               rendered=rendered, peak_memory_gb=peak_gb, wall_s=wall_s,
+               rendered=rendered, peak_memory_gb=peak_gb, wall_s=wall_s, wide_ckpt=wide_path,
                inception_images_per_s=timing["inception_images"] / timing["inception_s"],
                inception_images=timing["inception_images"],
                compositing_ms_per_image=1e3 * timing["compositing_s"] / timing["composited"],
@@ -1464,6 +1486,241 @@ def evaluation_phase(torch, np, args, card, attention, bias_act_mod, tmp: str, s
         f"G_ema forwards  [{card}]")
     rec["card_vs_cpu"] = features_card_vs_cpu(torch, np, args, val_path, t, inc_path)
     return rec
+
+
+# ---------------------------------------------------------------------------
+# 11. HTTP serving
+# ---------------------------------------------------------------------------
+
+def http_attention_shapes() -> list:
+    """(rows, T) of the server's attention calls (phase 11): one forward of
+    SERVE_RESULTS seeds of 9 elements at T=256."""
+    return [(SERVE_RESULTS * 9, 256)]
+
+
+def http_json(url: str, body=None) -> tuple:
+    """(status, parsed JSON or None) of a JSON POST, or a GET when ``body``
+    is None; an HTTP error status comes back, it does not raise."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        e.read()
+        return e.code, None
+
+
+def banner_background(np, size: int, seed: int) -> bytes:
+    """A PNG of a ``size`` x ``size`` background: colour ramps, blocks and noise."""
+    import io
+
+    import PIL.Image
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:size, 0:size] / size
+    img = np.stack([x, y, 0.5 + 0.5 * np.sin(6 * x + 4 * y)], axis=-1) * 255
+    for _ in range(6):
+        r0, c0 = rng.integers(0, size * 3 // 4, size=2)
+        img[r0:r0 + size // 4, c0:c0 + size // 4] = rng.integers(0, 256, size=3)
+    img = np.clip(img + rng.normal(scale=8, size=img.shape), 0, 255).astype(np.uint8)
+    buf = io.BytesIO()
+    PIL.Image.fromarray(img).save(buf, "PNG")
+    return buf.getvalue()
+
+
+@contextlib.contextmanager
+def timed_server(torch, api_server, seen: dict):
+    """Inside, the server's checkpoint loads are counted (``loads``), each
+    loaded model's forwards timed by CUDA events (``forward_ms``, read
+    after a sync) and its ``visualize_banner`` calls on the host clock
+    (``render_s``)."""
+    real_load, real_vis = api_server.load_generator_checkpoint, api_server.visualize_banner
+    seen.update(loads=[], events=[], render_s=0.0)
+
+    def load(ckpt, *a, **k):
+        model = real_load(ckpt, *a, **k)
+        seen["loads"].append(ckpt)
+
+        def pre(module, inputs):
+            seen["events"].append([torch.cuda.Event(enable_timing=True) for _ in range(2)])
+            seen["events"][-1][0].record()
+
+        model.register_forward_pre_hook(pre)
+        model.register_forward_hook(lambda module, inputs, out: seen["events"][-1][1].record())
+        return model
+
+    def vis(*a, **k):
+        t0 = time.perf_counter()
+        out = real_vis(*a, **k)
+        seen["render_s"] += time.perf_counter() - t0
+        return out
+
+    api_server.load_generator_checkpoint, api_server.visualize_banner = load, vis
+    try:
+        yield seen
+    finally:
+        api_server.load_generator_checkpoint, api_server.visualize_banner = real_load, real_vis
+
+
+def http_serving_phase(torch, np, args, card, attention, bias_act_mod, tmp: str, ckpt: str) -> dict:
+    """Slice 5's serving path: the port's stdlib HTTP server in a thread on
+    127.0.0.1 (a free port), on phase 10 (b)'s full-width fp32
+    ``save_generator`` file (T=256). POST /upload of a 1024^2 PNG, two
+    /prediction requests of SERVE_RESULTS banners (1-9 elements each) with
+    the launch counts set to 0 before each and read after, /update on a
+    returned page, GET and POST /save, and an unknown route."""
+    import base64
+    import threading
+
+    from layoutdetr_tpu_torch.serving import api_server
+
+    cfg = api_server.ServerConfig(ckpt, "cuda", torch.float32,
+                                  upload_dir=os.path.join(tmp, "uploads"),
+                                  generated_dir=os.path.join(tmp, "generated"))
+    api_server._MODEL_CACHE.clear()
+    server = api_server.make_server(cfg, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    rng = np.random.default_rng(args.seed)
+    requests_out = []
+    with timed_server(torch, api_server, {}) as seen:
+        thread.start()
+        try:
+            png = banner_background(np, 1024, args.seed)
+            status, up = http_json(url + "/upload", {"image": base64.b64encode(png).decode()})
+            if status != 200:
+                raise AssertionError(f"/upload answered {status}")
+            for k in (int(rng.integers(1, 10)), 9):
+                elements = [{"text": " ".join(rng.choice(WORDS, size=int(rng.integers(1, 8)))),
+                             "type": LABELS[int(i)]} for i in rng.integers(0, len(LABELS), size=k)]
+                body = {"imageId": up["imageId"], "numResults": SERVE_RESULTS,
+                        "contentStyle": {"elements": elements}}
+                render0, events0 = seen["render_s"], len(seen["events"])
+                zero_counters(attention, bias_act_mod)
+                t0 = time.perf_counter()
+                status, pred = http_json(url + "/prediction", body)
+                latency_s = time.perf_counter() - t0
+                launches = counters(attention, bias_act_mod)
+                torch.cuda.synchronize()
+                if status != 200 or len(seen["events"]) != events0 + 1:
+                    raise AssertionError(f"/prediction answered {status}; "
+                                         f"{len(seen['events']) - events0} forwards")
+                start, end = seen["events"][-1]
+                forward_ms = start.elapsed_time(end)
+                results = pred["results"]
+                overlaps = [r["overlap"] for r in results]
+                want = dict(fused_attention=12, fused_attention_dropout=0, bias_act=0,
+                            bias_act_backward=0)
+                if (launches != want or len(results) != SERVE_RESULTS
+                        or sorted(r["seed"] for r in results) != list(range(1, SERVE_RESULTS + 1))
+                        or overlaps != sorted(overlaps) or not all(map(math.isfinite, overlaps))
+                        or not all(os.path.exists(r["image"]) and os.path.exists(r["html"])
+                                   for r in results)):
+                    raise AssertionError(f"/prediction with {k} elements: launches {launches}, "
+                                         f"results {results}")
+                rec = dict(elements=k, results=SERVE_RESULTS, latency_ms=1e3 * latency_s,
+                           forward_ms=forward_ms, render_ms=1e3 * (seen["render_s"] - render0),
+                           launches=launches, overlaps=overlaps)
+                rec["rest_ms"] = rec["latency_ms"] - rec["forward_ms"] - rec["render_ms"]
+                requests_out.append(rec)
+                log(f"http /prediction ({k} elements, {SERVE_RESULTS} banners, fp32 T=256): host "
+                    f"latency {rec['latency_ms']:.1f} ms = forward {forward_ms:.1f} ms (CUDA "
+                    f"events) + rendering {rec['render_ms']:.1f} ms (PIL, {SERVE_RESULTS} banners: "
+                    f"image and HTML) + the rest {rec['rest_ms']:.1f} ms (load on the first, "
+                    f"decode, tokenize, post-processing, JSON); overlaps "
+                    f"{', '.join(f'{v:.4f}' for v in overlaps)}; launches {launches}  [{card}]")
+            html = results[0]["html"]
+            with open(html) as f:
+                doc = f.read()
+            status, upd = http_json(url + "/update", {"editedHTMLs": [
+                {"htmlName": os.path.basename(html), "htmlContent": doc}]})
+            vis_png = html[:-len(".html")] + "_vis.png"
+            if status != 200 or upd["updatedStatus"][0]["status"] != "success" \
+                    or not os.path.exists(vis_png):
+                raise AssertionError(f"/update answered {status}: {upd}")
+            saves = [http_json(url + "/save"), http_json(url + "/save", {})]
+            if saves != [(200, {"status": "success"})] * 2:
+                raise AssertionError(f"/save answered {saves}")
+            unknown = http_json(url + "/no-such-route", {})[0]
+            if unknown != 404:
+                raise AssertionError(f"an unknown route answered {unknown}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+    if thread.is_alive() or seen["loads"] != [ckpt]:
+        raise AssertionError(f"server thread alive {thread.is_alive()}, loads {seen['loads']}")
+    api_server._MODEL_CACHE.clear()
+    torch.cuda.empty_cache()
+    log(f"http serving: /upload (1024^2 PNG), 2 x /prediction from one load, /update (PIL "
+        f"re-render), GET and POST /save, 404 on an unknown route")
+    return dict(requests=requests_out, loads=len(seen["loads"]),
+                launches=sum(r["launches"]["fused_attention"] for r in requests_out))
+
+
+# ---------------------------------------------------------------------------
+# 12. the bench
+# ---------------------------------------------------------------------------
+
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "baseline_source", "value_sustained",
+              "value_burst", "vs_baseline_burst")
+
+
+def bench_phase(torch, args, card, attention, bias_act_mod) -> dict:
+    """``python -m layoutdetr_tpu_torch.bench`` through ``bench.main`` with
+    its defaults (bf16, T=256, batch 16, 2 warm-up + 6 burst + 24 sustained
+    steps), then ``--infer``; counts from 0 before each, read after: 12
+    attention launches with dropout and 48 + 48 bias_act a timed step (and
+    48 + 48 in the FLOP-count step, whose attention is plain); 12
+    deterministic attention launches a timed forward."""
+    import io
+
+    from layoutdetr_tpu_torch import bench
+
+    out = {}
+    for tag, extra in (("train", []), ("infer", ["--infer"])):
+        zero_counters(attention, bias_act_mod)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = bench.main(["--device", "cuda", "--seed", str(args.seed), *extra])
+        wall_s = time.perf_counter() - t0
+        launches = counters(attention, bias_act_mod)
+        lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+        if len(lines) != 1:
+            raise AssertionError(f"bench {tag}: stdout {lines}")
+        line = json.loads(lines[0])
+        calls = res["calls"]
+        timed = calls["warmup"] + calls["burst"] + calls["sustained"]
+        if tag == "train":
+            want = dict(fused_attention=0, fused_attention_dropout=12 * timed,
+                        bias_act=48 * (timed + 1), bias_act_backward=48 * (timed + 1))
+        else:
+            want = dict(fused_attention=12 * timed, fused_attention_dropout=0, bias_act=0,
+                        bias_act_backward=0)
+        if (tuple(line) != BENCH_KEYS or line != res["line"] or line["unit"] != "imgs/sec/chip"
+                or not line["value"] == line["value_sustained"] > 0
+                or line["baseline_source"] != "derived" or launches != want):
+            raise AssertionError(f"bench {tag}: {line}, launches {launches}, expected {want}")
+        log(lines[0])
+        jax_flops = bench.JAX_TRAIN_FLOPS_PER_IMG  # XLA's count, bf16 T=256
+        ratio = res["flops_per_img"] / jax_flops
+        log(f"bench {tag} {res['dtype']} T={res['T']} batch {res['batch']}: {line['value']:.2f} "
+            f"images/s sustained, {line['value_burst']:.2f} burst; "
+            f"FLOPs/img {res['flops_per_img']:.4e}"
+            + (f" ({ratio:.3f}x JAX's XLA count {jax_flops:.4g})" if tag == "train"
+               else "")
+            + f"; {res['achieved_tflops']:.2f} TFLOP/s, MFU {res['mfu']:.2%} of "
+              f"{res['peak_tflops']:g} TFLOP/s; peak memory {res['peak_memory_gib']:.2f} GiB; "
+              f"launches {launches}; wall {wall_s:.1f} s  [{card}]")
+        out[tag] = dict(line=line, launches=launches, launches_expected=want, wall_s=wall_s,
+                        **{k: v for k, v in res.items() if k != "line"})
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1530,7 +1787,8 @@ def main() -> int:
     # 3. kernels vs plain
     shapes = list(dict.fromkeys(serving_attention_shapes(args.batch)
                                 + run_attention_shapes(args.batch, run_t)
-                                + eval_attention_shapes(args.batch, run_t)))
+                                + eval_attention_shapes(args.batch, run_t)
+                                + http_attention_shapes()))
     attn_cases = attention_phase(torch, attention, args.seed, shapes)
     cfg = GeneratorConfig()
     torch.manual_seed(args.seed)
@@ -1653,11 +1911,20 @@ def main() -> int:
     # 10. evaluation, slice 4's main path
     evaluation = evaluation_phase(torch, np, args, card, attention, bias_act_mod, workdir.name,
                                   run["snapshot"], val_path, run_t)
+
+    # 11. HTTP serving, slice 5's serving path, on phase 10 (b)'s checkpoint
+    http = http_serving_phase(torch, np, args, card, attention, bias_act_mod, workdir.name,
+                              evaluation["wide_ckpt"])
     workdir.cleanup()
 
-    kernels = kernel_records(attn_cases, bias_cases, serve_launches, train, run, evaluation)
+    # 12. the bench, slice 5's measurement path
+    bench_rec = bench_phase(torch, args, card, attention, bias_act_mod)
+
+    kernels = kernel_records(attn_cases, bias_cases, serve_launches, train, run, evaluation, http,
+                             bench_rec)
     log(json.dumps({"serving": serving, "train": train, "step_correctness": correctness,
-                    "training_run": run, "evaluation": evaluation,
+                    "training_run": run, "evaluation": evaluation, "http_serving": http,
+                    "bench": bench_rec,
                     "model_max_abs": err, "model_bf16_max_abs": err_bf16,
                     "model_bf16_vs_fp32_max_abs": err_bf16_fp32, "cpu_max_abs": err_cpu,
                     "attention_cases": attn_cases, "bias_act_cases": bias_cases,
@@ -1754,15 +2021,16 @@ def largest_lrelu(cases: list) -> dict:
 
 
 def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run: dict,
-                   evaluation: dict) -> list:
+                   evaluation: dict, http: dict, bench_rec: dict) -> list:
     """The kernels line: each kernel at its representative case (fp32,
     T=256 for attention; one fp32 step's 48 bias_act calls summed), with
     the launches of each main path that runs it (``launches_by_path``) and
     their sum. Attention's two forms count apart: the dropout form under
     fused_attention_dropout (the train step's and the training run's main
     steps), the deterministic one under fused_attention (serving, the
-    training run's reg steps, summaries, previews and metric ticks, and the
-    evaluation)."""
+    training run's reg steps, summaries, previews and metric ticks, the
+    evaluation, the HTTP server and the bench's --infer; the bench's train
+    step runs the dropout form and both bias_act kernels)."""
     def attn(rate):
         return next(c for c in attn_cases if c["dtype"] == "float32" and c["shape"][2] == 256
                     and c["dropout_rate"] == rate)
@@ -1775,6 +2043,10 @@ def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run
             by_path[k]["train_step"] = train_launches
         by_path[k]["training_run"] = run["launches"][k]
     by_path["fused_attention"]["evaluation"] = evaluation["launches"]["fused_attention"]
+    by_path["fused_attention"]["http_serving"] = http["launches"]
+    by_path["fused_attention"]["bench_infer"] = bench_rec["infer"]["launches"]["fused_attention"]
+    for k in ("fused_attention_dropout", "bias_act", "bias_act_backward"):
+        by_path[k]["bench_train"] = bench_rec["train"]["launches"][k]
     src = "layoutdetr_tpu_torch/ops/csrc/"
     out = []
     for name, rate in (("fused_attention", 0.0), ("fused_attention_dropout", DROPOUT)):

@@ -91,6 +91,12 @@ def _element_geometry(box, style, is_center, w_page, h_page):
     x1, y1, x2, y2 = convert_xywh_to_ltrb(box)
     x1, x2 = max(0, int(x1 * w_page)), min(w_page - 1, int(x2 * w_page))
     y1, y2 = max(0, int(y1 * h_page)), min(h_page - 1, int(y2 * h_page))
+    # A box off the page or with a negative size (de_overlap can push a box
+    # out or shrink it below 0) keeps a 1-pixel extent at its clipped edge:
+    # the reference's font sizing takes the square root of a negative area
+    # there and fails. Boxes on the page keep their pixels.
+    x1, y1 = min(x1, w_page - 1), min(y1, h_page - 1)
+    x2, y2 = max(x2, x1), max(y2, y1)
     h_tbox, w_tbox = int(y2 - y1 + 1), int(x2 - x1 + 1)
     raw_box = (int(x1), int(y1), int(x2), int(y2))
     text = style.get("text", "")

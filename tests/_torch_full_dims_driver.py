@@ -1,0 +1,260 @@
+"""The port against the JAX package at production dims, both on the CPU.
+
+The port's CPU tests hold every module to the JAX package at tiny widths
+(1e-5). This driver holds it at the reference's production training
+config, where 768-wide softmax ranges, LayerNorm eps and the drift through
+~50 layers show, to the bar of ``docs/PARITY.md:127``: max-abs ≤ 1e-3 for
+every output, ≤ 2e-3 for ``bg_rec``. The config is that of
+``tests/_full_dims_driver.py:47-51``:
+
+    B=1, 9 elements, T=256 (token lengths 2..256, max-length sequences
+    included), BERT 768 wide with 12 encoder + 2 decoder layers, 4 heads,
+    intermediate 3072, vocab 30524, hidden 256, DETR 6+6 (8 heads, FFN
+    2048), im_f_dim 512, 256^2 background, fp32, deterministic.
+
+Weights are random JAX params from a seed, crossed over to the port with
+``generator_state_dict_from_jax`` / ``discriminator_state_dict_from_jax``.
+Compared outputs (``docs/PARITY.md:116-125``): G at ``reconst=True``
+(``bbox_fake``, ``logit_cls`` of the valid elements, ``loss_z``,
+``loss_lm``, ``loss_text_len``), D at ``reconst=True`` (both critics'
+logits, ``bbox_rec`` and ``logit_cls`` of both decoders at the valid
+elements, ``loss_lm``, ``loss_text_len``, ``bg_rec``), and the stats of one
+deterministic train step (shared hoisted text pass, the same z on both
+sides).
+
+Run standalone (not collected by the test suite; about 4 minutes on an
+8-core Xeon, most of it XLA compiling JAX's train step):
+
+    python tests/_torch_full_dims_driver.py [--no-step]
+
+``tests/test_torch_full_dims_driver.py`` runs ``compare`` at tiny dims.
+The card's half is transitive: ``chip_smoke.py`` holds the port on the
+card against the port on the CPU at full width.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import os
+import platform
+import sys
+import time
+
+import numpy as np
+
+import conftest  # noqa: F401  (forces JAX to the CPU, offline guards, sys.path)
+
+import jax
+import torch
+
+from layoutdetr_tpu.models.discriminator import Discriminator as JaxDiscriminator
+from layoutdetr_tpu.models.generator import Generator as JaxGenerator
+from layoutdetr_tpu.models.generator import GeneratorConfig as JaxConfig
+from layoutdetr_tpu.models.generator import make_text_feature_fn as jax_text_feature_fn
+from layoutdetr_tpu.training import optimizers as jax_opt
+from layoutdetr_tpu.training import train_step as jax_step
+from layoutdetr_tpu_torch.config import GeneratorConfig
+from layoutdetr_tpu_torch.models.discriminator import Discriminator
+from layoutdetr_tpu_torch.models.generator import Generator
+from layoutdetr_tpu_torch.training.optimizers import build_optimizer
+from layoutdetr_tpu_torch.training.train_step import GANTrainState, make_train_step
+from layoutdetr_tpu_torch.utils.convert import (
+    discriminator_state_dict_from_jax,
+    generator_state_dict_from_jax,
+)
+
+from test_torch_common import random_params
+
+FULL = dict(
+    z_dim=4, num_bbox_labels=8, max_elements=9, hidden_dim=256, bert_f_dim=768,
+    bert_num_heads=4, bert_num_encoder_layers=12, bert_num_decoder_layers=2,
+    bert_intermediate_size=3072, bert_max_position_embeddings=512, im_f_dim=512,
+    max_text_length=256, vocab_size=30524, bos_token_id=30522, pad_token_id=0, nhead=8,
+    num_encoder_layers=6, num_decoder_layers=6, dim_feedforward=2048, background_size=256,
+)
+BAR, BG_REC_BAR = 1e-3, 2e-3  # docs/PARITY.md:127
+LENGTHS = (64, 4, 256, 192, 3, 33, 2, 2, 2)  # tokens per element, [CLS] included
+N_VALID = 6  # elements 6..8 are padding
+G_NAMES = ("bbox_fake", "loss_z", "logit_cls", "loss_lm", "loss_text_len")
+D_NAMES = ("logit", "logit_uncond", "bbox_rec", "logit_cls", "loss_lm", "loss_text_len",
+           "bg_rec", "bbox_rec_uncond", "logit_cls_uncond")
+PER_ELEMENT = ("logit_cls", "bbox_rec", "bbox_rec_uncond", "logit_cls_uncond")
+
+
+def make_inputs(cfg: JaxConfig, seed: int = 3) -> dict:
+    """B=1, the model's inputs (numpy, background channels last)."""
+    rng = np.random.default_rng(seed)
+    n, t = cfg.max_elements, cfg.max_text_length
+    # BERT's [CLS] and word ids; a tiny test vocab takes ids below its size
+    cls, lo, hi = (101, 1000, 29000) if cfg.vocab_size > 29000 else (1, 2, cfg.vocab_size - 2)
+    ids = np.zeros((1, n, t), np.int64)
+    mask = np.zeros((1, n, t), np.int32)
+    for i, length in enumerate(LENGTHS[:n]):
+        length = min(length, t)
+        ids[0, i, 0] = cls
+        ids[0, i, 1:length] = rng.integers(lo, hi, size=length - 1)
+        mask[0, i, :length] = 1
+    pad = np.arange(n)[None] >= N_VALID
+    return dict(
+        z=rng.normal(size=(1, n, cfg.z_dim)).astype(np.float32),
+        bbox_class=rng.integers(0, cfg.num_bbox_labels, size=(1, n)),
+        bbox=rng.uniform(0.1, 0.9, size=(1, n, 4)).astype(np.float32),
+        text_ids=ids, text_mask=mask,
+        text_len=rng.integers(0, cfg.text_len_table, size=(1, n)),
+        padding_mask=pad,
+        background=rng.normal(size=(1, cfg.background_size, cfg.background_size, 3))
+        .astype(np.float32),
+    )
+
+
+def _model_kwargs(x: dict) -> dict:
+    return {k: x[k] for k in ("bbox_class", "text_ids", "text_mask", "text_len", "padding_mask",
+                              "background")}
+
+
+def _step_batch(x: dict) -> dict:
+    return dict(bboxes=x["bbox"], labels=x["bbox_class"], text_ids=x["text_ids"],
+                text_mask=x["text_mask"], text_len=x["text_len"], mask=~x["padding_mask"],
+                background=x["background"])
+
+
+def _torch(tree: dict) -> dict:
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in tree.items()}
+
+
+def _jax_z(rng, n: int, z_dim: int):
+    """The z JAX's step draws for one phase at B=1 (train_step.py:171-194)."""
+    rng, _ = jax.random.split(rng)  # the text-pass split
+    rng_z, _ = jax.random.split(rng)
+    return np.array(jax.random.normal(rng_z, (1, n, z_dim)))
+
+
+def _row(name: str, got, want, bar: float = BAR) -> dict:
+    got = np.asarray(got.detach().float().numpy() if isinstance(got, torch.Tensor) else got,
+                     np.float64)
+    want = np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {got.shape} vs {want.shape}")
+    d = np.abs(got - want)
+    return dict(name=name, max_abs=float(d.max()), scale=float(np.abs(want).max()), bar=bar,
+                ok=bool(d.max() <= bar))
+
+
+def _outputs(prefix: str, names, got, want, valid) -> list:
+    rows = []
+    for name, g, w in zip(names, got, want):
+        g = g.detach().numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        w = np.asarray(w)
+        if name in PER_ELEMENT:
+            g, w, name = g[valid], w[valid], f"{name}[valid]"
+        rows.append(_row(f"{prefix} {name}", g, w, BG_REC_BAR if name == "bg_rec" else BAR))
+    return rows
+
+
+def compare(dims: dict, seed: int = 0, step: bool = True, log=print) -> list:
+    """The port vs JAX on one B=1 input at ``dims`` (GeneratorConfig
+    fields), random JAX params from ``seed``: one row per compared output,
+    ``dict(name, max_abs, scale, bar, ok)``."""
+    jcfg = JaxConfig(**dims)
+    cfg = GeneratorConfig.from_dict(dims)
+    x = make_inputs(jcfg)
+    kw = _model_kwargs(x)
+    valid = ~x["padding_mask"]
+    t0 = time.perf_counter()
+
+    def mark(what):
+        log(f"[{time.perf_counter() - t0:7.1f} s] {what}")
+
+    jg, jd = JaxGenerator(jcfg), JaxDiscriminator(jcfg)
+    pg = random_params(jg, z=x["z"], bbox_real=x["bbox"], reconst=True, seed=seed, **kw)
+    pd = random_params(jd, bbox=x["bbox"], reconst=True, seed=seed + 1, **kw)
+    mark("JAX params drawn")
+    want_g = jax.tree.map(np.asarray, jax.jit(lambda p: jg.apply(
+        {"params": p}, z=x["z"], bbox_real=x["bbox"], reconst=True, **kw))(pg))
+    mark("JAX G forward")
+    want_d = jax.tree.map(np.asarray, jax.jit(lambda p: jd.apply(
+        {"params": p}, bbox=x["bbox"], reconst=True, **kw))(pd))
+    mark("JAX D forward")
+
+    want_stats = z = None
+    if step:
+        batch = _step_batch(x)
+        vg, vd = {"params": pg}, {"params": pd}
+        tx_g = jax_opt.build_optimizer(vg, reg_interval=4,
+                                       frozen_substrings=jax_opt.G_FROZEN_SUBSTRINGS)
+        tx_d = jax_opt.build_optimizer(vd, reg_interval=16,
+                                       frozen_substrings=jax_opt.D_FROZEN_SUBSTRINGS)
+        state = jax_step.GANTrainState.create(vg, vd, tx_g, tx_d)
+        fn = jax_step.make_train_step(
+            jg.apply, jd.apply, tx_g, tx_d, batch_size=1, z_dim=jcfg.z_dim,
+            max_elements=jcfg.max_elements, deterministic=True,
+            text_feature_fn=jax_text_feature_fn(jcfg, flash=False), share_text_encoder=True,
+            ema_freeze_labels=jax_opt.freeze_mask(vg, jax_opt.G_FROZEN_SUBSTRINGS))
+        rng = jax.random.PRNGKey(1)
+        state, stats = jax.jit(fn, donate_argnums=(0,))(state, batch, rng)
+        want_stats = {k: float(v) for k, v in stats.items()}
+        del state, stats, fn
+        gc.collect()
+        rng_g, rng_d = jax.random.split(rng)
+        z = tuple(torch.from_numpy(_jax_z(r, jcfg.max_elements, jcfg.z_dim))
+                  for r in (rng_g, rng_d))
+        mark("JAX train step")
+
+    G, D = Generator(cfg), Discriminator(cfg)
+    G.load_state_dict(generator_state_dict_from_jax(pg, cfg), strict=True)
+    D.load_state_dict(discriminator_state_dict_from_jax(pd, cfg), strict=True)
+    del pg, pd
+    tkw = _torch(kw)
+    with torch.no_grad():
+        got_g = G.eval()(z=torch.from_numpy(x["z"]), bbox_real=None, reconst=True, **tkw)
+        mark("port G forward")
+        got_d = D.eval()(bbox=torch.from_numpy(x["bbox"]), reconst=True, **tkw)
+        mark("port D forward")
+    rows = _outputs("G", G_NAMES, got_g, want_g, valid)
+    rows += _outputs("D", D_NAMES, got_d, want_d, valid)
+
+    if step:
+        state = GANTrainState.create(G.train(), D.train(), build_optimizer(G, reg_interval=4),
+                                     build_optimizer(D, reg_interval=16))
+        got_stats = make_train_step(batch_size=1, z_dim=cfg.z_dim, max_elements=cfg.max_elements,
+                                    deterministic=True)(state, _torch(_step_batch(x)),
+                                                        torch.Generator().manual_seed(0), z=z)
+        mark("port train step")
+        if set(got_stats) != set(want_stats):
+            raise AssertionError(f"step stats {sorted(got_stats)} vs {sorted(want_stats)}")
+        rows += [_row(f"step {k}", float(got_stats[k]), v) for k, v in sorted(want_stats.items())]
+    return rows
+
+
+def table(rows: list) -> str:
+    lines = ["| output | max-abs | scale (max \\|JAX\\|) | bar |", "|---|---|---|---|"]
+    lines += [f"| {r['name']} | {r['max_abs']:.2e} | {r['scale']:.3g} | {r['bar']:.0e}"
+              f"{'' if r['ok'] else ' FAILED'} |" for r in rows]
+    return "\n".join(lines)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-step", action="store_true", help="compare the forwards only")
+    args = ap.parse_args(argv)
+    torch.set_num_threads(os.cpu_count() or 1)
+    print(f"host: {platform.processor() or platform.machine()}, {os.cpu_count()} CPUs; "
+          f"torch {torch.__version__}, jax {jax.__version__}", flush=True)
+    t0 = time.perf_counter()
+    rows = compare(FULL, args.seed, step=not args.no_step,
+                   log=lambda s: print(s, flush=True))
+    print(table(rows))
+    bad = [r["name"] for r in rows if not r["ok"]]
+    print(f"{len(rows) - len(bad)} of {len(rows)} outputs within their bars; "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    if bad:
+        print(f"FAILED: {bad}", flush=True)
+        return 1
+    print("TORCH_FULL_DIMS_PARITY OK", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,26 @@
+"""The production-dims parity driver's comparison, run at tiny dims so the
+standalone driver (``tests/_torch_full_dims_driver.py``) cannot rot: the
+same inputs, random JAX params crossed over, G and D at ``reconst=True``
+and one deterministic train step, every output within the driver's bars
+(and here within 1e-5, the tiny-dims bar of the other port tests)."""
+
+import _torch_full_dims_driver as driver
+
+from test_torch_common import TINY_KW
+from test_torch_common import one_torch_thread  # noqa: F401 (module-scoped autouse fixture)
+
+
+def test_compare_at_tiny_dims():
+    dims = {k: v for k, v in TINY_KW.items() if k != "backbone_stage_sizes"}
+    dims.update(backbone_stage_sizes=(1, 1, 1, 1), reconst_decoder_layers=1,
+                uncond_encoder_layers=1)
+    rows = driver.compare(dims, log=lambda s: None)
+    names = [r["name"] for r in rows]
+    assert names[:5] == ["G bbox_fake", "G loss_z", "G logit_cls[valid]", "G loss_lm",
+                         "G loss_text_len"]
+    assert "D bg_rec" in names and "D bbox_rec[valid]" in names
+    assert sum(n.startswith("step ") for n in names) >= 8
+    assert all(r["ok"] for r in rows), driver.table(rows)
+    worst = {r["name"]: r["max_abs"] for r in rows if r["max_abs"] > 1e-5 * max(1.0, r["scale"])}
+    assert not worst, worst
+    assert "| D bg_rec |" in driver.table(rows)
