@@ -5,6 +5,7 @@ kernel on them against its plain version.
     python3 chip_smoke.py [--seed 0] [--batch 16]
     python3 chip_smoke.py --bias-act-only
     python3 chip_smoke.py --attention-only
+    python3 chip_smoke.py --bench-host-only
 
 The second form runs phases 1-3 for bias_act alone, adds where a call's
 host time goes (two ways to read the current stream, the host us of a
@@ -12,7 +13,13 @@ call beside torch.add / torch.sum / empty_like), and prints one JSON line
 and no ok line. The third does the same for fused_attention: its 8 cases,
 and the host us of a call at [18, 4, 64, 192] bf16 beside sdpa's, split
 into plan and checks, empty_like, the per-call tensor-map encoding, a bare
-ctypes call and the stream read.
+ctypes call and the stream read. The fourth runs the bench's train step
+beside phase 7's in one process (bf16, T=256, batch 16): each step's host
+time to return from the call and to the end of a synchronize after it, a
+12-step window of each in the order A, B, B, A, and one profiled step of
+each (device busy ms, kernel launches, and the count and host ms of
+``aten::item``, ``cudaLaunchKernel`` and the other host calls that can
+hold a step); one JSON line and no ok line.
 
 Phases (any failure ends the run with a non-zero exit and no result):
 
@@ -213,6 +220,9 @@ SERVE_RESULTS = 5  # banners a /prediction (the JAX server's default numResults)
 SUITE = "overlap50k_alignment50k_layoutwise_iou50k_layoutwise_docsim50k_val"
 TRAIN_VARIANTS = (("bfloat16", 256), ("float32", 256), ("bfloat16", 64))
 RANGES = ("train_step.", "Optimizer.")  # profiler range names, not kernels
+# host calls counted in --bench-host-only's profiled steps
+HOST_CALLS = ("aten::item", "aten::_local_scalar_dense", "cudaLaunchKernel", "cuLaunchKernelEx",
+              "cudaMemcpyAsync", "cudaStreamSynchronize", "cudaDeviceSynchronize")
 
 
 def log(*args):
@@ -1737,6 +1747,9 @@ def main() -> int:
     ap.add_argument("--attention-only", action="store_true",
                     help="run phases 1-3 for fused_attention alone, with where a call's host "
                          "time goes, and print their JSON; prints no ok line")
+    ap.add_argument("--bench-host-only", action="store_true",
+                    help="time the bench's train step beside phase 7's in one process, with "
+                         "host and device time split, and print their JSON; prints no ok line")
     args = ap.parse_args()
 
     import torch
@@ -1751,6 +1764,8 @@ def main() -> int:
         return bias_act_only(torch, args)
     if args.attention_only:
         return attention_only(torch, args)
+    if args.bench_host_only:
+        return bench_host_only(torch, np, args)
 
     from layoutdetr_tpu_torch.config import GeneratorConfig
     from layoutdetr_tpu_torch.generate import generate_layouts
@@ -2004,6 +2019,123 @@ def attention_only(torch, args) -> int:
     cases = attention_phase(torch, attention, args.seed, serving_attention_shapes(args.batch))
     host = attention_host_costs(torch, attention)
     log(json.dumps({"tree": ROOT, "card": card, "host": host, "cases": cases}))
+    return 0
+
+
+def bench_host_only(torch, np, args, device: str = "cuda", cfg=None) -> int:
+    """The bench's train step (``bench.py``'s models, batch and step) beside
+    phase 7's (``new_train_state``, ``train_batch``, ``make_step``), bf16
+    at ``cfg``'s T (default ``GeneratorConfig()``, T=256), in one process:
+    2 warm-up steps each; rounds of 8 steps in the order bench, phase 7,
+    phase 7, bench, with each step's host ms to return from the call (the
+    enqueue) and to the end of a synchronize after it; a 12-step window of
+    each in the same order; one profiled step each. Where the enqueue time
+    equals the synced time the card finished before the host did. One JSON
+    line, no ok line."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from layoutdetr_tpu_torch import bench
+    from layoutdetr_tpu_torch.config import GeneratorConfig
+    from layoutdetr_tpu_torch.models.discriminator import Discriminator
+    from layoutdetr_tpu_torch.models.generator import Generator
+    from layoutdetr_tpu_torch.ops import _build
+
+    on_card = device == "cuda"
+    card = nvidia_smi() if on_card else "cpu"
+    log(f"device: {card} | tree {ROOT}")
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            list(pool.map(_build.build, ("attention", "bias_act")))
+        log(f"build attention.cu + bias_act.cu: {time.perf_counter() - t0:.2f} s")
+    cfg = cfg or GeneratorConfig()
+    b, t, dtype = args.batch, cfg.max_text_length, torch.bfloat16
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    G, D = bench.init_models(cfg, device, dtype, args.seed)
+    bench_state = bench.train_state(G, D)
+    bench_step = make_step(cfg, b, deterministic=False)
+    bench_batch = {k: v for k, v in bench.example_batch(cfg, b, t, 16, device, args.seed).items()
+                   if k != "z"}
+    torch.manual_seed(args.seed)
+    with torch.device(device):
+        states = (Generator(cfg).state_dict(), Discriminator(cfg).state_dict())
+    p7_state = new_train_state(torch, cfg, dtype, states, device)
+    del states
+    p7_step = make_step(cfg, b, deterministic=False)
+    p7_batch = train_batch(torch, np, cfg, b, args.seed, device)
+    p7_gen = torch.Generator().manual_seed(args.seed)
+    n = [0]
+    seen = {"bench": [], "phase7": []}
+
+    def run_bench():
+        n[0] += 1
+        seen["bench"].append(bench_step(bench_state, bench_batch,
+                                        torch.Generator().manual_seed(n[0])))
+
+    def run_p7():
+        seen["phase7"].append(p7_step(p7_state, p7_batch, p7_gen))
+
+    runs = {"bench": run_bench, "phase7": run_p7}
+    order = ("bench", "phase7", "phase7", "bench")
+    for run in runs.values():
+        run(), run()
+    sync()
+    rounds = {k: [] for k in runs}
+    for which in order:
+        for _ in range(8):
+            t0 = time.perf_counter()
+            runs[which]()
+            t1 = time.perf_counter()
+            sync()
+            rounds[which].append(dict(enqueue_ms=(t1 - t0) * 1e3,
+                                      synced_ms=(time.perf_counter() - t0) * 1e3))
+    windows = {k: [] for k in runs}
+    for which in order:
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(12):
+            runs[which]()
+        sync()
+        windows[which].append((time.perf_counter() - t0) * 1e3 / 12)
+    profiled = {}
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    for which, run in runs.items():
+        with tprofile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            run()
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        summary = profile_summary(prof, wall_ms)
+        calls = {e.key: dict(count=e.count, self_host_ms=e.self_cpu_time_total / 1e3)
+                 for e in prof.key_averages()
+                 if e.key in HOST_CALLS and e.device_type.name == "CPU"}
+        profiled[which] = dict(wall_ms=wall_ms, device_busy_ms=summary["device_busy_ms"],
+                               idle_share=summary["idle_share"],
+                               kernel_launches=summary["kernel_launches"], host_calls=calls,
+                               split=summary["split"], top_host=summary["top_host"])
+    for which, stats in seen.items():
+        bad = sorted({k for s in stats for k, v in s.items() if not torch.isfinite(v).all()})
+        if bad:
+            raise AssertionError(f"{which}: non-finite train stats {bad}")
+    for which in runs:
+        r, p = rounds[which], profiled[which]
+        log(f"{which}: steps enqueue/synced ms "
+            + " ".join(f"{x['enqueue_ms']:.1f}/{x['synced_ms']:.1f}" for x in r))
+        log(f"{which}: 12-step windows ms/step {', '.join(f'{x:.2f}' for x in windows[which])}")
+        log(f"{which}: profiled step wall {p['wall_ms']:.1f} ms, device busy "
+            f"{p['device_busy_ms']:.1f} ms (idle share {p['idle_share']:.3f}), "
+            f"{p['kernel_launches']} kernels; host calls "
+            + ", ".join(f"{k} {v['count']}x {v['self_host_ms']:.2f} ms" for k, v in
+                        p["host_calls"].items()) + f"  [{card}]")
+    log(json.dumps({"tree": ROOT, "card": card, "batch": b, "T": t, "dtype": "bfloat16",
+                    "order": order, "rounds": rounds, "windows_ms_per_step": windows,
+                    "profiled": profiled}))
     return 0
 
 

@@ -141,6 +141,13 @@ def count_flops(fn, modules: Sequence[torch.nn.Module]) -> Optional[float]:
         return None
 
 
+def train_state(G: torch.nn.Module, D: torch.nn.Module) -> GANTrainState:
+    """G and D with the train step's optimizers (lazy regularization
+    intervals 4 and 16, as the training run's)."""
+    return GANTrainState.create(G, D, build_optimizer(G.train(), reg_interval=4),
+                                build_optimizer(D.train(), reg_interval=16))
+
+
 def card_line(device: torch.device) -> str:
     """The card's name and power limit as nvidia-smi gives them, or "cpu"."""
     if device.type != "cuda":
@@ -176,8 +183,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="bench G's forward (the serving path) instead of the train step")
     ap.add_argument("--no-flash", action="store_true",
                     help="plain attention in the text encoders instead of the fused kernel")
-    ap.add_argument("--no-ema-freeze", action="store_true",
-                    help="the EMA sweeps the frozen parameters too")
     ap.add_argument("--no-share-text-encoder", action="store_true",
                     help="run G's and D's frozen text encoders separately")
     ap.add_argument("--seed", type=int, default=0, help="weights and inputs")
@@ -231,11 +236,9 @@ def main(argv=None) -> dict:
 
         modules = (G,)
     else:
-        state = GANTrainState.create(G, D, build_optimizer(G.train(), reg_interval=4),
-                                     build_optimizer(D.train(), reg_interval=16))
+        state = train_state(G, D)
         step = make_train_step(batch_size=b, z_dim=cfg.z_dim, max_elements=cfg.max_elements,
-                               share_text_encoder=not args.no_share_text_encoder,
-                               ema_freeze=not args.no_ema_freeze)
+                               share_text_encoder=not args.no_share_text_encoder)
         train_batch = {k: v for k, v in batch.items() if k != "z"}
         n, stats = 0, {}
 

@@ -14,9 +14,10 @@ e2e_pipeline/api_server.py: ``/upload`` :85-109, ``/prediction``
   attention kernel; then per seed, from the seed's ``RandomState``, jitter
   (probability 5/6) and center alignment (2/3), the overlap metric, a
   ranking by overlap and a banner rendered as an image and an HTML page;
-- the four handlers and ``ROUTES``, served by Flask when it is importable
-  and by the stdlib ``http.server`` otherwise (``make_server`` binds,
-  ``serve_forever`` runs it, so a caller can serve from a thread).
+- the four handlers and ``ROUTES``, served by the stdlib ``http.server``
+  (``make_server`` binds, ``serve_forever`` runs it, so a caller can serve
+  from a thread). The JAX server's Flask front is not ported: the stdlib
+  server is its fallback there and the only front here.
 
 One difference by design: a client's ``imageId`` is reduced to its
 basename before it is joined to the upload directory, as ``/update``
@@ -215,20 +216,6 @@ ROUTES: Dict[str, Callable[[ServerConfig, dict], dict]] = {
 }
 
 
-def create_flask_app(cfg: ServerConfig):
-    """The routes as a Flask app (raises ImportError without Flask)."""
-    from flask import Flask, jsonify, request
-
-    app = Flask(__name__)
-    for route, handler in ROUTES.items():
-        def view(h=handler):
-            return jsonify(h(cfg, request.get_json(force=True, silent=True) or {}))
-
-        methods = ["GET", "POST"] if route == "/save" else ["POST"]
-        app.add_url_rule(route, route.strip("/"), view, methods=methods)
-    return app
-
-
 def make_server(cfg: ServerConfig, host: str = "127.0.0.1", port: int = 0) -> HTTPServer:
     """The routes on the stdlib ``http.server``, bound to (host, port) but
     not yet serving (``serve_forever``); port 0 picks a free one
@@ -282,14 +269,9 @@ def main(argv=None) -> None:
         ap.error("no CUDA device; pass --device cpu to serve on the CPU")
     cfg = ServerConfig(args.ckpt, args.device, DTYPES[args.dtype])
     load_model(cfg.ckpt, cfg.device, cfg.dtype)  # fail before serving, not on the first request
-    try:
-        app = create_flask_app(cfg)
-    except ImportError:
-        server = make_server(cfg, args.host, args.port)
-        print(f"Serving on {args.host}:{server.server_address[1]} (stdlib http.server)", flush=True)
-        server.serve_forever()
-    else:
-        app.run(host=args.host, port=args.port)
+    server = make_server(cfg, args.host, args.port)
+    print(f"Serving on {args.host}:{server.server_address[1]} (stdlib http.server)", flush=True)
+    server.serve_forever()
 
 
 if __name__ == "__main__":

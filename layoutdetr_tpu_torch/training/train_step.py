@@ -18,9 +18,7 @@ training_loop.py:274-332). One call of the main step:
    with respect to D's trainable parameters; sanitize; D's Adam steps;
 4. EMA of G into ``G_ema`` with the half-life schedule ``ema_beta``,
    skipping frozen parameters (their lerp is the identity: they never
-   move and started equal); ``ema_freeze=False`` sweeps them too, as
-   JAX's step does without ``ema_freeze_labels`` (the bench's
-   ``--no-ema-freeze``).
+   move and started equal).
 
 Each part runs inside a ``torch.profiler.record_function`` range named
 ``train_step.<part>`` (text, Gmain, G_adam, Dmain, D_adam, ema), so a
@@ -147,7 +145,7 @@ def make_train_step(weights: LossWeights = LossWeights(), batch_size: int = 16,
                     ema_kimg: Optional[float] = None, ema_rampup: Optional[float] = 0.05,
                     z_dim: int = 4, max_elements: int = 9, deterministic: bool = False,
                     grad_accum: int = 1, aug_cfg: Optional[AugmentConfig] = None,
-                    share_text_encoder: bool = True, ema_freeze: bool = True):
+                    share_text_encoder: bool = True):
     """Returns ``step(state, batch, generator, z=None) -> stats``.
 
     ``generator``: a CPU torch.Generator. ``batch``: tensors on the models'
@@ -155,8 +153,7 @@ def make_train_step(weights: LossWeights = LossWeights(), batch_size: int = 16,
     (True = valid), background; optionally ``aug_p`` (float), the ADA
     probability, with ``aug_cfg`` its groups (default CONDITIONAL_SAFE).
     ``share_text_encoder=False`` runs D's own frozen encoder for D's text
-    features (G's and D's encoders hold different weights).
-    ``ema_freeze=False`` runs the EMA over the frozen parameters too."""
+    features (G's and D's encoders hold different weights)."""
     if ema_kimg is None:
         ema_kimg = batch_size * 10 / 32  # train.py:249
 
@@ -202,12 +199,11 @@ def make_train_step(weights: LossWeights = LossWeights(), batch_size: int = 16,
         with record_function("train_step.D_adam"):
             _apply(state.opt_d, params_d, d_grads)
 
-        # EMA (training_loop.py:320-328), trainable parameters only unless
-        # ema_freeze is off
+        # EMA (training_loop.py:320-328), trainable parameters only
         beta = ema_beta(batch_size, ema_kimg, (state.step + 1) * batch_size, ema_rampup)
         with record_function("train_step.ema"), torch.no_grad():
             pairs = [(e, p) for e, p in zip(state.G_ema.parameters(), state.G.parameters())
-                     if p.requires_grad or not ema_freeze]
+                     if p.requires_grad]
             ema = [e for e, _ in pairs]
             cur = [p for _, p in pairs]
             torch._foreach_sub_(ema, cur)  # e <- (e - p) * beta + p, in place

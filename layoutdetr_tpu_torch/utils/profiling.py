@@ -1,41 +1,19 @@
-"""Tracing and phase timing.
-
-Counterpart of ``layoutdetr_tpu/utils/profiling.py`` (reference
-training_loop.py:199-203, 255, 302, 430-435; torch_utils/misc.py:103-108
-``@profiled_function``):
-
-- ``trace``: ``torch.profiler`` over the enclosed block, host and (where
-  the run has a card) CUDA activity, written into ``log_dir`` as a Chrome
-  trace (viewable in Perfetto or ``chrome://tracing``);
-- ``profiled_function``: a ``record_function`` range named after the
-  function, which a trace shows around its ops;
-- ``PhaseTimer``: the host clock around named phases into
-  ``Timing/<name>``, synchronising the current CUDA stream at the end of a
-  phase when asked (the analogue of JAX's ``block_until_ready``), so the
-  phase's time includes the device work it enqueued.
+"""Tracing, the counterpart of ``trace`` in
+``layoutdetr_tpu/utils/profiling.py``: ``torch.profiler`` over the
+enclosed block, host and (where the run has a card) CUDA activity, written
+into ``log_dir`` as a Chrome trace (viewable in Perfetto or
+``chrome://tracing``). The bench's ``--profile`` uses it; the train step
+and the training loop mark their parts with ``record_function`` ranges,
+which the trace shows.
 """
 
 from __future__ import annotations
 
 import contextlib
-import functools
 import os
-import time
-from typing import Dict
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
-
-
-def profiled_function(fn):
-    """Wrap ``fn`` in a profiler range named after it."""
-
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
-        with record_function(fn.__name__):
-            return fn(*args, **kwargs)
-
-    return wrapper
+from torch.profiler import ProfilerActivity, profile
 
 
 @contextlib.contextmanager
@@ -53,21 +31,3 @@ def trace(log_dir: str, enabled: bool = True):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}.json"))
-
-
-class PhaseTimer:
-    """Host wall-clock timing of named phases -> ``results["Timing/<name>"]``
-    in seconds. ``sync=True`` waits for the current CUDA stream at the end
-    of the phase (a no-op without a card), so the time covers the device
-    work the phase enqueued."""
-
-    def __init__(self):
-        self.results: Dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str, sync: bool = False):
-        t0 = time.perf_counter()
-        yield
-        if sync and torch.cuda.is_available():
-            torch.cuda.current_stream().synchronize()
-        self.results[f"Timing/{name}"] = time.perf_counter() - t0

@@ -196,13 +196,21 @@ def test_main_refuses_cuda_without_a_card(ckpt):
 
 def test_a_box_off_the_page_still_renders(tmp_path):
     """de_overlap can push a box off the page or shrink its height below 0;
-    such an element keeps a 1-pixel extent at its clipped edge (the JAX
-    package's font sizing takes the square root of a negative area)."""
+    such an element keeps a 1-pixel extent at its clipped edge, where the
+    JAX package's renderer raises on each of these boxes (its font sizing
+    takes the square root of a negative area, its crop gets lower < upper):
+    the difference by design of ROADMAP Queue C."""
+    from layoutdetr_tpu.serving.render import visualize_banner as jax_visualize_banner
     from layoutdetr_tpu_torch.serving.render import visualize_banner
 
     boxes = np.array([[0.5, -0.2, 0.4, 0.1], [0.5, 0.5, 0.6, -0.05], [0.5, 1.3, 0.3, 0.1],
                       [1.4, 0.5, 0.2, 0.1]], np.float32)
     elements = ELEMENTS + [{"text": "logo", "type": "logo"}]
+    for i in range(len(boxes)):
+        with pytest.raises((ValueError, TypeError)):
+            jax_visualize_banner(boxes[i:i + 1], np.ones(1, bool), elements[i:i + 1], True,
+                                 _background(), None, ["image", "html"],
+                                 str(tmp_path / f"jax_{i}"))
     image, html = visualize_banner(boxes, np.ones(4, bool), elements, True, _background(), None,
                                    ["image", "html"], str(tmp_path / "banner"))
     assert os.path.exists(image) and os.path.exists(html)

@@ -58,7 +58,7 @@ def test_flop_count_is_the_plain_paths(infer, capsys):
 
 def test_no_share_text_encoder_counts_a_second_encoder_pass(capsys):
     shared = bench.main(QUICK)["flops_per_step"]
-    separate = bench.main(QUICK + ["--no-share-text-encoder", "--no-ema-freeze"])["flops_per_step"]
+    separate = bench.main(QUICK + ["--no-share-text-encoder"])["flops_per_step"]
     assert separate > shared
     capsys.readouterr()
 

@@ -304,29 +304,3 @@ def test_port_config_reads_the_jax_config():
         for f in dataclasses.fields(port):
             if f.name != "flash_attention":
                 assert getattr(port, f.name) == getattr(ref, f.name), (which, f.name)
-
-
-@pytest.mark.parametrize("ema_freeze", [True, False])
-def test_ema_freeze_off_sweeps_the_frozen_parameters(case, ema_freeze):
-    """JAX's step without ema_freeze_labels lerps every leaf; the port's
-    ema_freeze=False does too (bench.py --no-ema-freeze). A frozen G_ema
-    entry moved off G's is lerped back toward it only then; trainable
-    entries follow the same schedule either way."""
-    _, cfg, batch, pg, pd = case
-    G, D = _port_models(cfg, pg, pd)
-    state = GANTrainState.create(G, D, build_optimizer(G, reg_interval=4),
-                                 build_optimizer(D, reg_interval=16))
-    name = "text_encoder.embeddings.LayerNorm.weight"
-    off = dict(state.G_ema.named_parameters())[name]
-    off.add_(1.0)
-    start = off.clone()
-    step = make_train_step(batch_size=B, z_dim=4, max_elements=N, deterministic=True,
-                           ema_freeze=ema_freeze)
-    step(state, _torch(batch), torch.Generator().manual_seed(0))
-    target = dict(state.G.named_parameters())[name].detach()
-    if ema_freeze:
-        assert torch.equal(off, start)
-    else:
-        beta = ema_beta(B, B * 10 / 32, B)
-        torch.testing.assert_close(off, target + (start - target) * beta, rtol=0, atol=1e-6)
-        assert not torch.equal(off, start)
