@@ -35,9 +35,11 @@ Phases (any failure ends the run with a non-zero exit and no result):
      rows B*9 (main and R1 steps, the metric ticks), (B/2)*9 (path
      length), 9 (module summaries, the served request) and 36 (image
      snapshot), the evaluation (rows B*9 and the last partial batch's,
-     at T=16 and T=256) and the HTTP server (rows 5*9 = 45 at T=256; the
-     bench's shapes are the train step's and serving's); fp32 and bf16, key
-     padding down to length 2;
+     at T=16 and T=256), the HTTP server (rows 5*9 = 45 at T=256; the
+     bench's shapes are the train step's and serving's; the ViT's, phase
+     13, are serving's, the train step's and the training run's) and
+     LayoutGAN++ (phase 14: rows B*9 and a partial batch's 7*9 at T=40);
+     fp32 and bf16, key padding down to length 2;
      deterministic, and with dropout 0.1 against the plain version with
      the same Philox keep mask; each case's share of its bound and its
      time over sdpa's;
@@ -48,7 +50,11 @@ Phases (any failure ends the run with a non-zero exit and no result):
      call's us beside torch.add / torch.sum; the autograd round trip
      through ``bias_act`` against eager ``x + b`` at [16, 512] linear and
      the largest lrelu call; one kernel launch a backward call
-     (profiled);
+     (profiled); and the same forward and backward checks at every
+     distinct call of a full-width LayoutGAN++ D's StyleGAN2 ``bg_encoder``
+     forward at batch 16 (22 calls: lrelu from [16, 32, 256, 256] down to
+     [16, 512, 4, 4], the bias-less linear skips at gain sqrt(1/2), the
+     lrelu and linear FCs [16, 512]);
 4. model: the full-width Generator (GeneratorConfig() defaults) from
    seeded random weights, with the kernel vs with plain attention on the
    card in fp32 and in bf16, the bf16 model vs the fp32 one, and the
@@ -131,7 +137,28 @@ Phases (any failure ends the run with a non-zero exit and no result):
    and 48 + 48 bias_act launches a step (and 48 + 48 in its FLOP-count
    step, which runs plain attention), 12 deterministic attention launches
    a forward. Each JSON line is parsed and printed; FLOPs an image (beside
-   JAX's 1.932e12), MFU against the H100's peak and peak memory.
+   JAX's 1.932e12), MFU against the H100's peak and peak memory;
+13. the ViT backbone (slice 6), ``GeneratorConfig(backbone="vit")`` at full
+   width (ViT-B/16, a 16 x 16 DETR memory), weights from --seed: (a) the
+   serving forward at T=256, fp32 and bf16, kernels vs plain attention,
+   bf16 vs fp32, card vs CPU (B=1, T=64), then ``generate_layouts``
+   batches with the counts from 0 (12 launches a forward), requests/s and
+   forward ms; (b) phase 7's bf16 T=256 train step (counted: 12 + 48 + 48
+   launches a step; step time, peak memory, one profiled step) and phase
+   8's deterministic fp32 steps (kernels vs plain, card vs CPU); (c)
+   ``train.main --backbone vit`` for 2 steps on phase 9's zip (bf16, auto
+   T, R1 and path length at step 0, a snapshot), then ``evaluate.main`` on
+   that snapshot (layout FID on 64 val items), counted from the run's start
+   to the evaluation's end;
+14. LayoutGAN++ (slice 6), ``LayoutGanPPConfig()`` at full width (BERT 768
+   x 12, 8 layers of 512, StyleGAN2 encoder and decoder at 256^2, T=40),
+   weights from --seed, fp32 and bf16, with the counts from 0: G forwards
+   at batch 16 and at a partial batch of 7, D(reconst=True) forwards (12
+   attention launches each, 22 bias_act an encoder and 48 a decoder), D
+   forward and backward of a fixed scalar of its outputs (its text pass
+   then runs plain attention); outputs and D's gradient with the kernels
+   vs with plain attention and plain bias_act, the card vs the CPU (fp32,
+   B=2), and each call's time.
 
 The last three lines of standard output are the kernels JSON, the card
 (nvidia-smi name, power limit) and ``{"ok": true, "device": {...}}``.
@@ -178,6 +205,14 @@ BF16_VS_FP32_TOL = 5e-2
 # The card vs the CPU on one small input: cuDNN and the CPU's conv
 # kernels sum in other orders through 16 unnormalized residual blocks.
 CPU_TOL = 1e-4
+# A gradient through lrelu is discontinuous at 0: where the card and the
+# CPU round a pre-activation to opposite sides of the kink (|z| within
+# fp32 rounding), that element's slope differs (0.2 against 1), and every
+# gradient upstream of it moves by its share of the flow: one element of
+# a [2, 512] mapping layer is ~1e-3 of it. So a gradient compared across
+# devices is held to CPU_TOL where no lrelu input changed side, else to
+# this (a wrong layout or a missing term moves it by O(1)).
+KINK_GRAD_TOL = 1e-2
 # bias_act vs its plain version on the same inputs. fp32 forward and dx:
 # the same elementwise fp32 arithmetic (exp/tanh may differ by an ulp),
 # 1e-6 of max |y|. fp32 db: a sum over up to 1M positions in another
@@ -262,6 +297,12 @@ def serving_attention_shapes(batch: int) -> list:
     """(rows, T) of the attention calls of serving and the train step:
     batch * 9 texts at T=256 and at the auto bucket 64."""
     return [(batch * 9, 256), (batch * 9, 64)]
+
+
+def layoutganpp_attention_shapes(batch: int) -> list:
+    """(rows, T) of phase 14's attention calls: LayoutGAN++'s frozen text
+    pass at T=40, ``batch`` samples and the partial batch of LGPP_PARTIAL."""
+    return [(batch * 9, 40), (LGPP_PARTIAL * 9, 40)]
 
 
 def run_attention_shapes(batch: int, t: int) -> list:
@@ -387,10 +428,12 @@ def plain_bias_act(bias_act_mod):
         bias_act_mod.bias_act_forward, bias_act_mod.bias_act_backward = fwd, bwd
 
 
-def bias_act_phase(torch, bias_act_mod, calls: list, seed: int) -> list:
+def bias_act_phase(torch, bias_act_mod, calls: list, seed: int, per: str = "step") -> list:
     """Forward and backward kernels vs the plain versions at each distinct
-    call of one step's bg_decoder forward; one record per (call, dtype)
-    with the number of times a step makes that call. b is in x's dtype, as
+    call of ``calls`` (one step's bg_decoder forward, or one LayoutGAN++
+    bg_encoder forward with ``per="encoder forward"``); one record per
+    (call, dtype) with the number of times a step (or ``per``) makes that
+    call. b is in x's dtype, as
     the models pass it (``self.bias.to(x.dtype)``). db must be bit-equal
     in two runs, and a bf16 call must give the same bits with b widened
     to fp32 (the kernel then reads the same values)."""
@@ -447,18 +490,28 @@ def bias_act_phase(torch, bias_act_mod, calls: list, seed: int) -> list:
             # where the call is linear with gain 1 and no clamp (the affine FCs
             # and ToRGB, 27 of the 48), one PyTorch call computes the same
             # function: the forward is torch.add(x, b) (b in x's dtype), the
-            # backward's db one sum of dy (dx is dy itself). The lrelu calls
-            # have no such call.
+            # backward's db one sum of dy (dx is dy itself). A linear call with
+            # another gain (the encoder's bias-less skip, gain sqrt(1/2)) has
+            # one forward, torch.add(gain * b, x, alpha=gain) with gain * b
+            # ([C]) made beforehand, and no single backward call (dx = gain *
+            # dy and db). The lrelu calls have no such call.
             pass_through = act == "linear" and gain == 1.0 and clamp is None
             lib_fwd = lib_bwd = lib_err = None
-            if pass_through:
+            if act == "linear" and clamp is None:
                 others = [i for i in range(len(shape)) if i != dim]
-                lib_err = ((torch.add(x, bview).float() - want_y).abs().max().item()
+                gbview = bview * gain
+
+                def lib_call():
+                    return torch.add(x, bview) if pass_through else torch.add(gbview, x, alpha=gain)
+
+                lib_err = ((lib_call().float() - want_y).abs().max().item()
                            / max(want_y.abs().max().item(), 1e-30))
                 if dtype_name == "float32" and not lib_err <= tol_y:  # the same fp32 add
                     raise AssertionError(f"torch.add vs bias_act_ref {shape}: {lib_err}")
-                lib_fwd = cuda_ms(torch, lambda: torch.add(x, bview), 20)
-                lib_bwd = cuda_ms(torch, lambda: torch.sum(dy, dim=others, dtype=torch.float32), 20)
+                lib_fwd = cuda_ms(torch, lib_call, 20)
+                if pass_through:
+                    lib_bwd = cuda_ms(torch, lambda: torch.sum(dy, dim=others, dtype=torch.float32),
+                                      20)
             # ~4 operations an element forward (add, act, gain, clamp), ~6
             # backward. Bytes: x read and y written forward; backward dy read,
             # x read where act' or the clamp need z, dx written unless it is
@@ -474,9 +527,9 @@ def bias_act_phase(torch, bias_act_mod, calls: list, seed: int) -> list:
                        eager_two_call_ms=eager_ms, library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
                        library_rel_err=lib_err, fwd_bound_ms=fb, fwd_bound_by=fby,
                        bwd_bound_ms=bb, bwd_bound_by=bby)
-            lib = ("none" if lib_fwd is None else
-                   f"torch.add {lib_fwd * 1e3:.1f} us / torch.sum {lib_bwd * 1e3:.1f} us")
-            log(f"bias_act {dtype_name} {list(shape)} {act} x{per_step}/step: rel err y "
+            lib = ("none" if lib_fwd is None else f"torch.add {lib_fwd * 1e3:.1f} us / " + (
+                "none" if lib_bwd is None else f"torch.sum {lib_bwd * 1e3:.1f} us"))
+            log(f"bias_act {dtype_name} {list(shape)} {act} gain {gain:.4g} x{per_step}/{per}: rel err y "
                 f"{errs['y']:.2e} dx {errs['dx']:.2e} db {errs['db']:.2e} (db bit-equal in 2 runs)  "
                 f"fwd {fwd_ms * 1e3:.1f} us a call (plain {plain_fwd:.4f} ms, two-call "
                 f"{eager_ms:.4f} ms, bound {fb * 1e3:.3f} us {fby})  bwd {bwd_ms * 1e3:.1f} us a call "
@@ -661,7 +714,9 @@ def attention_host_costs(torch, attention) -> dict:
 def per_step_totals(records: list, dtype_name: str) -> dict:
     """Sums over one step's calls (each distinct call times its count);
     library_* and *_ms_library_calls sum only the calls that have a library
-    call (library_calls of them), the kernel's time beside the library's."""
+    call (library_calls of them have one forward; a linear call with a gain
+    other than 1 has none backward), the kernel's time beside the
+    library's."""
     out = dict(fwd_ms=0.0, bwd_ms=0.0, plain_fwd_ms=0.0, plain_bwd_ms=0.0, fwd_bound_ms=0.0,
                bwd_bound_ms=0.0, max_rel_err_fwd=0.0, max_rel_err_bwd=0.0, library_fwd_ms=0.0,
                library_bwd_ms=0.0, fwd_ms_library_calls=0.0, bwd_ms_library_calls=0.0,
@@ -673,7 +728,8 @@ def per_step_totals(records: list, dtype_name: str) -> dict:
             out[k] += r[k] * r["per_step"]
         if r["library_fwd_ms"] is not None:
             out["library_calls"] += r["per_step"]
-            for key in ("fwd", "bwd"):
+        for key in ("fwd", "bwd"):
+            if r[f"library_{key}_ms"] is not None:
                 out[f"library_{key}_ms"] += r[f"library_{key}_ms"] * r["per_step"]
                 out[f"{key}_ms_library_calls"] += r[f"{key}_ms"] * r["per_step"]
         out["max_rel_err_fwd"] = max(out["max_rel_err_fwd"], r["rel_err"]["y"])
@@ -807,13 +863,14 @@ def profile_summary(prof, wall_ms: float) -> dict:
                 split=split)
 
 
-def train_phase(torch, np, cfg, states, args, card, attention, bias_act_mod) -> list:
-    """The main path of slice 2: per variant, counts from 0, 1 warm-up, 3
-    timed and 1 profiled step, counts read after."""
+def train_phase(torch, np, cfg, states, args, card, attention, bias_act_mod,
+                variants=TRAIN_VARIANTS) -> list:
+    """The main path of slice 2: per (dtype, T) of ``variants``, counts from
+    0, 1 warm-up, 3 timed and 1 profiled step, counts read after."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     results = []
-    for dtype_name, t in TRAIN_VARIANTS:
+    for dtype_name, t in variants:
         vcfg = dataclasses.replace(cfg, max_text_length=t, text_len_table=256)
         state = new_train_state(torch, vcfg, getattr(torch, dtype_name), states, "cuda")
         batch = train_batch(torch, np, vcfg, args.batch, args.seed, "cuda")
@@ -877,7 +934,7 @@ def train_phase(torch, np, cfg, states, args, card, attention, bias_act_mod) -> 
                    profiled_step_wall_ms=prof_wall_ms, **{k: v for k, v in prof_rec.items()
                                                           if k not in ("top", "top_host")},
                    losses={k: float(v) for k, v in stats_seen[-1].items()})
-        log(f"train {dtype_name} T={t} batch {args.batch}: step {step_ms:.1f} ms (median) "
+        log(f"train {cfg.backbone} {dtype_name} T={t} batch {args.batch}: step {step_ms:.1f} ms (median) "
             f"(runs {', '.join(f'{x:.1f}' for x in times)}) = {rec['images_per_s']:.1f} images/s, "
             f"peak memory {peak_gb:.2f} GB  [{card}]")
         log(f"  launches per step: {rec['launches_per_step']}; trainable moved, frozen "
@@ -1734,6 +1791,475 @@ def bench_phase(torch, args, card, attention, bias_act_mod) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 13. the ViT backbone
+# ---------------------------------------------------------------------------
+
+VIT_RUN_STEPS = 2  # phase 13 (c)
+
+
+def model_errors(got, want) -> list:
+    """Per output: max-abs over max(1, max |want|)."""
+    return [(g.float() - w.float()).abs().max().item() / max(1.0, w.float().abs().max().item())
+            for g, w in zip(got, want)]
+
+
+def vit_serving(torch, np, cfg, states, args, card, attention, bias_act_mod) -> dict:
+    """Phase 13 (a): the ViT Generator's serving forward at T=256, fp32 and
+    bf16: kernels vs plain attention, bf16 vs fp32, card vs CPU; then
+    ``generate_layouts`` batches with the counts from 0 (12 launches a
+    forward), and each forward's time."""
+    from layoutdetr_tpu_torch.generate import generate_layouts
+    from layoutdetr_tpu_torch.models.generator import Generator
+
+    def build(dtype, flash=True, device="cuda"):
+        with torch.device(device):
+            m = Generator(cfg, dtype=dtype, flash_attention=flash)
+        m.load_state_dict(states[0] if device == "cuda" else
+                          {k: v.cpu() for k, v in states[0].items()}, strict=True)
+        return m.eval()
+
+    batch = to_device(torch, model_batch(np, cfg, args.batch, args.seed), "cuda")
+    out = {}
+    with torch.inference_mode():
+        want32 = build(torch.float32, flash=False)(**batch)
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            got = build(dtype)(**batch)
+            torch.cuda.synchronize()
+            want = want32 if dtype == torch.float32 else build(dtype, flash=False)(**batch)
+            err = (got - want).abs().max().item()
+            err32 = (got - want32).abs().max().item()
+            bar = MODEL_TOL if dtype == torch.float32 else MODEL_TOL_BF16
+            if (got.shape != (args.batch, 9, 4) or got.dtype != torch.float32
+                    or not torch.isfinite(got).all() or not err <= bar
+                    or not err32 <= BF16_VS_FP32_TOL):
+                raise AssertionError(f"ViT Generator {dtype_name}: {tuple(got.shape)}, kernel vs "
+                                     f"plain {err}, vs fp32 plain {err32}")
+            out[dtype_name] = dict(kernel_vs_plain=err, vs_fp32_plain=err32)
+            log(f"ViT Generator {dtype_name} B={args.batch} T=256: bbox_fake max-abs {err:.3e} "
+                f"kernel vs plain attention (bar {bar:.0e}), {err32:.3e} vs the fp32 plain model")
+        small = model_batch(np, cfg, 1, args.seed + 1, t=64)
+        got = build(torch.float32)(**to_device(torch, small, "cuda")).cpu()
+        want = build(torch.float32, device="cpu")(**to_device(torch, small, "cpu"))
+    err_cpu = (got - want).abs().max().item()
+    if not err_cpu <= CPU_TOL:
+        raise AssertionError(f"ViT Generator card vs CPU: max-abs {err_cpu}")
+    out["card_vs_cpu"] = err_cpu
+    log(f"ViT Generator fp32 B=1 T=64, card vs CPU: bbox_fake max-abs {err_cpu:.3e}")
+    del batch, want32, got, want
+
+    reqs = requests(np, cfg, args.batch, args.seed)
+    models = {d: build(getattr(torch, d)) for d in ("float32", "bfloat16")}
+    zero_counters(attention, bias_act_mod)
+    forwards = 0
+    for dtype_name, m in models.items():
+        e2e = []
+        for i in range(4):  # the first batch warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            layouts = generate_layouts(m, reqs, seed=args.seed + i, device="cuda")
+            torch.cuda.synchronize()
+            e2e.append(time.perf_counter() - t0)
+            forwards += 1
+            for lay in layouts:
+                if not np.isfinite(lay.bbox).all() or not ((lay.raw > 0) & (lay.raw < 1)).all():
+                    raise AssertionError(f"ViT served layout out of range: {lay.raw}")
+        e2e_s = sum(e2e[1:]) / len(e2e[1:])
+        out[dtype_name].update(requests_per_s=args.batch / e2e_s, request_batch_ms=1e3 * e2e_s)
+    launches = counters(attention, bias_act_mod)
+    want = dict(fused_attention=12 * forwards, fused_attention_dropout=0, bias_act=0,
+                bias_act_backward=0)
+    if launches != want:
+        raise AssertionError(f"ViT serving: launches {launches} in {forwards} forwards, "
+                             f"expected {want}")
+    out["launches"] = launches
+    inputs = to_device(torch, model_batch(np, cfg, args.batch, args.seed), "cuda")
+    for dtype_name, m in models.items():
+        with torch.inference_mode():
+            fwd_ms = cuda_ms(torch, lambda: m(**inputs), 5, warmup=1)
+        r = out[dtype_name]
+        r.update(forward_ms=fwd_ms, images_per_s=args.batch / fwd_ms * 1e3)
+        log(f"ViT serving {dtype_name} T=256 batch {args.batch}: {r['requests_per_s']:.1f} "
+            f"requests/s end to end ({r['request_batch_ms']:.1f} ms a batch), forward "
+            f"{fwd_ms:.1f} ms = {r['images_per_s']:.1f} images/s  [{card}]")
+    log(f"main path (ViT serving): {forwards} served batches, launches {launches}")
+    return out
+
+
+def vit_training_run(torch, args, card, attention, bias_act_mod, tmp: str, zip_path: str,
+                     val_path: str, t: int) -> dict:
+    """Phase 13 (c): ``train.main --backbone vit`` at full width for
+    VIT_RUN_STEPS steps on phase 9's zip (bf16, T=``t`` auto, R1 and path
+    length at step 0, a snapshot), then ``evaluate.main`` on that snapshot
+    (layout FID on the val.zip), with the counts from 0 before the run and
+    read after the evaluation."""
+    from layoutdetr_tpu_torch import evaluate
+    from layoutdetr_tpu_torch import train as train_cli
+    from layoutdetr_tpu_torch.metrics import layout_fid
+
+    out = os.path.join(tmp, "vit_runs")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(attention, bias_act_mod)
+    t0 = time.perf_counter()
+    state = train_cli.main(["--outdir", out, "--data", zip_path, "--batch", str(args.batch),
+                            "--bf16", "--backbone", "vit", "--max-text-length", "auto", "--gamma",
+                            "1", "--pl-weight", "2", "--seed", str(args.seed), "--snap", "1",
+                            "--metrics", "none", "--device-feed", "on", "--max-steps",
+                            str(VIT_RUN_STEPS)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    (run_name,) = os.listdir(out)
+    run_dir = os.path.join(out, run_name)
+    records, ticks = read_run(run_dir)
+    check_ticks(records, ticks, VIT_RUN_STEPS, "ViT training run")
+    snaps = sorted(n for n in os.listdir(run_dir) if n.endswith(".pt"))
+    if state.step != VIT_RUN_STEPS or not snaps:
+        raise AssertionError(f"ViT training run: step {state.step}, snapshots {snaps}")
+    snap = os.path.join(run_dir, snaps[-1])
+    with open(snap + ".gcfg.json") as f:
+        gcfg = json.load(f)
+    if gcfg["backbone"] != "vit" or gcfg["max_text_length"] != t:
+        raise AssertionError(f"ViT snapshot config: {gcfg}")
+    del state
+    torch.cuda.empty_cache()
+
+    eval_dir = os.path.join(tmp, "eval_vit")
+    os.makedirs(eval_dir)
+    t0 = time.perf_counter()
+    with counted_generation(layout_fid, {}) as gen, contextlib.chdir(tmp):
+        results = evaluate.main(["--ckpt", snap, "--data", val_path, "--metrics",
+                                 "layout_fid50k_val", "--batch", str(args.batch), "--max-items",
+                                 str(EVAL_ITEMS), "--run-dir", eval_dir, "--seed", str(args.seed),
+                                 "--device", "cuda"])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = counters(attention, bias_act_mod)
+    fid = results[0]["results"]["layout_fid50k_val"]
+    g_regs = len(range(0, VIT_RUN_STEPS, G_REG))
+    d_regs = len(range(0, VIT_RUN_STEPS, D_REG))
+    forwards = math.ceil(EVAL_ITEMS / args.batch)
+    # as phase 9's: reg steps, the two module summaries, an image snapshot
+    # a tick, then the evaluation's G_ema forwards
+    want = dict(fused_attention=12 * (g_regs + d_regs) + 12 * 2 + 12 * len(ticks) + 12 * forwards,
+                fused_attention_dropout=12 * VIT_RUN_STEPS, bias_act=48 * VIT_RUN_STEPS + 48,
+                bias_act_backward=48 * VIT_RUN_STEPS)
+    if launches != want or gen.get("forwards") != forwards or not math.isfinite(fid):
+        raise AssertionError(f"ViT training run and evaluation: launches {launches} (expected "
+                             f"{want}), {gen.get('forwards')} G_ema forwards, FID {fid}")
+    rec = dict(steps=VIT_RUN_STEPS, ticks=len(ticks), train_wall_s=train_s,
+               sec_per_kimg=records[-1]["sec_per_kimg"], peak_memory_gb=peak_gb,
+               snapshot=os.path.basename(snap), T=t, layout_fid=fid, eval_wall_s=eval_s,
+               eval_total_time_s=results[0]["total_time"], launches=launches)
+    log(f"ViT training run (train.main --backbone vit, bf16, batch {args.batch}, T={t}, "
+        f"{VIT_RUN_STEPS} steps + {g_regs} path-length + {d_regs} R1): wall {train_s:.1f} s, "
+        f"peak memory {peak_gb:.2f} GiB; evaluate.main on {os.path.basename(snap)}: "
+        f"layout_fid50k_val {fid:.4f} on {EVAL_ITEMS} items ({eval_s:.1f} s); launches "
+        f"{launches} (as expected)  [{card}]")
+    return rec
+
+
+def vit_phase(torch, np, args, card, attention, bias_act_mod, tmp: str, zip_path: str,
+              val_path: str, t: int) -> dict:
+    """Phase 13, the ViT family at full width (``GeneratorConfig(backbone=
+    "vit")``, weights from --seed): (a) serving, (b) the bf16 T=256 train
+    step (counted, timed, profiled) and one deterministic fp32 step kernels
+    vs plain and card vs CPU, (c) the training CLI and the evaluation."""
+    from layoutdetr_tpu_torch.config import GeneratorConfig
+    from layoutdetr_tpu_torch.models.discriminator import Discriminator
+    from layoutdetr_tpu_torch.models.generator import Generator
+
+    cfg = GeneratorConfig(backbone="vit")
+    torch.manual_seed(args.seed)
+    with torch.device("cuda"):
+        states = (Generator(cfg).state_dict(), Discriminator(cfg).state_dict())
+    rec = dict(serving=vit_serving(torch, np, cfg, states, args, card, attention, bias_act_mod))
+    torch.cuda.empty_cache()
+    rec["train"] = train_phase(torch, np, cfg, states, args, card, attention, bias_act_mod,
+                               variants=(("bfloat16", 256),))
+    rec["step_correctness"] = step_correctness_phase(torch, np, cfg, states, args, attention,
+                                                     bias_act_mod)
+    del states
+    torch.cuda.empty_cache()
+    rec["training_run"] = vit_training_run(torch, args, card, attention, bias_act_mod, tmp,
+                                           zip_path, val_path, t)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# 14. LayoutGAN++
+# ---------------------------------------------------------------------------
+
+LGPP_PARTIAL = 7  # phase 14's partial batch
+
+
+def lgpp_batch(np, cfg, b: int, seed: int) -> dict:
+    """LayoutGAN++ inputs: ``model_batch``'s, with D's boxes and the
+    character lengths the variant reads as len / 40."""
+    m = model_batch(np, cfg, b, seed)
+    m["bbox"] = m["bbox_real"]
+    return m
+
+
+def encoder_calls(torch, cfg, batch: int) -> list:
+    """The arguments of every bias_act call of one ``bg_encoder`` forward of a
+    full-width LayoutGAN++ D (seeded random weights)."""
+    from layoutdetr_tpu_torch.models.layoutganpp import LayoutGanPPDiscriminator
+    from layoutdetr_tpu_torch.ops import bias_act as bias_act_mod
+
+    with torch.device("cuda"):
+        disc = LayoutGanPPDiscriminator(cfg)
+    calls = []
+    bg = torch.randn(batch, 3, cfg.background_size, cfg.background_size, device="cuda")
+    with recorded_bias_act_calls(bias_act_mod, calls), torch.no_grad():
+        disc.bg_encoder(bg)
+    want = 4 + 3 * (len(disc.bg_encoder.block_resolutions) - 1) + 3
+    if len(calls) != want:
+        raise AssertionError(f"{len(calls)} bias_act calls in one bg_encoder forward, expected "
+                             f"{want}")
+    del disc
+    return calls
+
+
+def _with_plain_attention(torch, module):
+    for m in module.modules():
+        if hasattr(m, "flash_attention"):
+            m.flash_attention = False
+    return module
+
+
+def lgpp_d_backward(torch, D, inputs, cots) -> tuple:
+    """D(reconst=True) forward with gradients, then the gradient of the fixed
+    scalar sum(out_i * cot_i) with respect to every parameter."""
+    outs = D(**inputs, reconst=True)
+    scalar = sum((o.float() * c).sum() for o, c in zip(outs, cots))
+    grads = torch.autograd.grad(scalar, list(D.parameters()), allow_unused=True)
+    return outs, grads
+
+
+@contextlib.contextmanager
+def recorded_lrelu_inputs(torch, bias_act_mod, seen: list):
+    """Inside, the input of every lrelu bias_act forward (x + b, fp32, on
+    the CPU) is appended to ``seen``."""
+    real = bias_act_mod.bias_act_forward
+
+    def record(x, b, dim, act, alpha, gain, clamp):
+        if act == "lrelu":
+            view = [-1 if i == dim else 1 for i in range(x.dim())]
+            seen.append((x.detach().float() + b.detach().float().view(view)).cpu())
+        return real(x, b, dim, act, alpha, gain, clamp)
+
+    bias_act_mod.bias_act_forward = record
+    try:
+        yield
+    finally:
+        bias_act_mod.bias_act_forward = real
+
+
+def kink_flips(got: list, want: list) -> dict:
+    """Elements whose lrelu input lies on the other side of 0 in ``got``
+    than in ``want`` (recorded by ``recorded_lrelu_inputs``), and the
+    largest |input| among them."""
+    flips, largest = 0, 0.0
+    for a, b in zip(got, want):
+        differ = (a > 0) != (b > 0)
+        n = int(differ.sum())
+        if n:
+            flips += n
+            largest = max(largest, float(b[differ].abs().max()), float(a[differ].abs().max()))
+    return dict(flips=flips, largest_abs_input=largest, calls=len(want))
+
+
+def grad_rel_l2(torch, got, want) -> float:
+    """||got - want|| / ||want|| over every parameter's gradient as one vector
+    (a None gradient is 0): one element near an lrelu kink can move a
+    single bias's gradient, not the vector."""
+    num = den = 0.0
+    for g, w in zip(got, want):
+        if w is None:
+            continue
+        g = torch.zeros_like(w) if g is None else g
+        num += (g.double() - w.double().to(g.device)).square().sum().item()
+        den += w.double().square().sum().item()
+    return math.sqrt(num / den)
+
+
+LGPP_NAMES = ("bbox_fake", "logit", "bbox_pred", "loss_lm", "bg_rec")
+
+
+def layoutganpp_phase(torch, np, args, card, attention, bias_act_mod, enc_calls: int) -> dict:
+    """Phase 14, the LayoutGAN++ pair at full width (``LayoutGanPPConfig()``:
+    BERT 768 x 12, f_dim 256, 8 layers of 512, StyleGAN2 encoder and
+    decoder at 256^2, T=40), batch 16, fp32 and bf16: with the counts from
+    0, G forwards at batch 16 and at a partial batch, D(reconst=True)
+    forwards, and D(reconst=True) forward + backward of a fixed scalar of its
+    outputs, counts read after (``enc_calls`` bias_act calls an encoder
+    forward, 48 a decoder forward); then each against the same with plain
+    attention and plain bias_act, the card against the CPU (fp32, batch 2),
+    and their times."""
+    from layoutdetr_tpu_torch.models.layoutganpp import (
+        LayoutGanPPConfig,
+        LayoutGanPPDiscriminator,
+        LayoutGanPPGenerator,
+    )
+
+    cfg = LayoutGanPPConfig()
+    torch.manual_seed(args.seed)
+    with torch.device("cuda"):
+        states = (LayoutGanPPGenerator(cfg).state_dict(),
+                  LayoutGanPPDiscriminator(cfg).state_dict())
+
+    def build(dtype, device="cuda", plain=False):
+        out = []
+        for cls, sd in zip((LayoutGanPPGenerator, LayoutGanPPDiscriminator), states):
+            with torch.device(device):
+                m = cls(cfg, dtype=dtype)
+            m.load_state_dict(sd if device == "cuda" else {k: v.cpu() for k, v in sd.items()},
+                              strict=True)
+            out.append(_with_plain_attention(torch, m.eval()) if plain else m.eval())
+        return out
+
+    def g_inputs(m):
+        return {k: m[k] for k in ("z", "bbox_class", "bbox_real", "text_ids", "text_mask",
+                                  "text_len", "padding_mask", "background")}
+
+    def d_inputs(m):
+        return {k: m[k] for k in ("bbox", "bbox_class", "text_ids", "text_mask", "text_len",
+                                  "padding_mask", "background")}
+
+    full = to_device(torch, lgpp_batch(np, cfg, args.batch, args.seed), "cuda")
+    part = to_device(torch, lgpp_batch(np, cfg, LGPP_PARTIAL, args.seed + 1), "cuda")
+    rng = np.random.default_rng(args.seed + 14)
+    shapes = [(args.batch, 9), (args.batch,), (args.batch, 9, 4), (),
+              (args.batch, cfg.background_size, cfg.background_size, 3)]
+    cots = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda() for s in shapes[1:]]
+    models = {d: build(getattr(torch, d)) for d in ("float32", "bfloat16")}
+    dec_calls = 48
+
+    # the main path, counted
+    zero_counters(attention, bias_act_mod)
+    seen = {}
+    for dtype_name, (G, D) in models.items():
+        with torch.inference_mode():
+            seen[dtype_name] = dict(g=G(**g_inputs(full)), g_part=G(**g_inputs(part)),
+                                    d=D(**d_inputs(full), reconst=True))
+        seen[dtype_name]["d_grad"] = lgpp_d_backward(torch, D, d_inputs(full), cots)
+    torch.cuda.synchronize()
+    launches = counters(attention, bias_act_mod)
+    # a no-grad forward runs the frozen text pass through the kernel (12);
+    # with gradients the text encoder runs plain attention
+    want = dict(fused_attention=2 * 12 * 3, fused_attention_dropout=0,
+                bias_act=2 * (2 * enc_calls + 2 * (enc_calls + dec_calls)),
+                bias_act_backward=2 * (enc_calls + dec_calls))
+    if launches != want:
+        raise AssertionError(f"LayoutGAN++: launches {launches}, expected {want}")
+    for dtype_name, r in seen.items():
+        outs = [r["g"], r["g_part"], *r["d"], *r["d_grad"][0]]
+        bad = [i for i, o in enumerate(outs) if not torch.isfinite(o.float()).all()]
+        bad += ["grads"] * any(g is not None and not torch.isfinite(g.float()).all()
+                               for g in r["d_grad"][1])
+        if bad or r["g"].shape != (args.batch, 9, 4) or r["d"][3].shape != full["background"].shape:
+            raise AssertionError(f"LayoutGAN++ {dtype_name}: non-finite {bad}, shapes "
+                                 f"{tuple(r['g'].shape)} {tuple(r['d'][3].shape)}")
+
+    rec = dict(launches=launches, calls_per_encoder=enc_calls)
+    for dtype_name, r in seen.items():
+        dtype = getattr(torch, dtype_name)
+        G, D = build(dtype, plain=True)
+        with plain_bias_act(bias_act_mod):
+            n0 = counters(attention, bias_act_mod)
+            with torch.inference_mode():
+                want_out = [G(**g_inputs(full)), G(**g_inputs(part)),
+                            *D(**d_inputs(full), reconst=True)]
+            d_outs, d_grads = lgpp_d_backward(torch, D, d_inputs(full), cots)
+            if counters(attention, bias_act_mod) != n0:
+                raise AssertionError("the plain LayoutGAN++ forwards launched a kernel")
+        errs = model_errors([r["g"], r["g_part"], *r["d"]], want_out)
+        bg_err = (r["d"][3].float() - want_out[5].float()).abs().max().item() / \
+            want_out[5].float().abs().max().item()
+        grad_err = grad_rel_l2(torch, r["d_grad"][1], d_grads)
+        bar = MODEL_TOL if dtype == torch.float32 else MODEL_TOL_BF16
+        # bf16: the two runs' text features differ by a bf16 rounding, and the
+        # decoder carries that to bg_rec; each run lies within
+        # BF16_VS_FP32_TOL of the fp32 function, so within twice that of the
+        # other
+        bg_bar = MODEL_TOL if dtype == torch.float32 else 2 * BF16_VS_FP32_TOL
+        if not (max(errs[:5]) <= bar and bg_err <= bg_bar
+                and (dtype != torch.float32 or grad_err <= MODEL_TOL)):
+            raise AssertionError(f"LayoutGAN++ {dtype_name} kernels vs plain: outputs {errs}, "
+                                 f"bg_rec {bg_err}, D gradient {grad_err}")
+        rec[dtype_name] = dict(kernels_vs_plain=dict(zip(("bbox_fake", "bbox_fake_partial",
+                                                          *LGPP_NAMES[1:4]), errs[:5]),
+                                                     bg_rec_rel=bg_err, d_grad_rel_l2=grad_err))
+        log(f"LayoutGAN++ {dtype_name} B={args.batch} T=40, kernels vs plain versions: outputs "
+            f"max-abs (relative above 1) {', '.join(f'{e:.2e}' for e in errs[:5])}, bg_rec "
+            f"{bg_err:.2e} of max, D's gradient relative L2 {grad_err:.2e}")
+        del G, D, want_out, d_outs, d_grads
+
+    # card vs CPU, fp32, batch 2
+    small = lgpp_batch(np, cfg, 2, args.seed + 2)
+    got_g, got_d = models["float32"]
+    cpu_g, cpu_d = build(torch.float32, device="cpu")
+    small_cots = [(c[:2] if c.dim() else c).cpu() for c in cots]
+    res, lrelu_in = {}, {}
+    for dev, (G, D) in (("cuda", (got_g, got_d)), ("cpu", (cpu_g, cpu_d))):
+        inputs = to_device(torch, small, dev)
+        with torch.inference_mode():
+            g = G(**g_inputs(inputs))
+        with recorded_lrelu_inputs(torch, bias_act_mod, lrelu_in.setdefault(dev, [])):
+            d_out, d_grad = lgpp_d_backward(torch, D, d_inputs(inputs),
+                                            [c.to(dev) for c in small_cots])
+        res[dev] = ([g.cpu(), *(o.detach().cpu() for o in d_out)],
+                    [None if x is None else x.cpu() for x in d_grad])
+    errs = model_errors(res["cuda"][0], res["cpu"][0])
+    bg_err = (res["cuda"][0][4] - res["cpu"][0][4]).abs().max().item() / \
+        res["cpu"][0][4].abs().max().item()
+    grad_err = grad_rel_l2(torch, res["cuda"][1], res["cpu"][1])
+    kinks = kink_flips(lrelu_in["cuda"], lrelu_in["cpu"])
+    del lrelu_in
+    names = [n for n, _ in cpu_d.named_parameters()]
+    # each leaf's share of the difference: ||g - w|| over the whole ||w||
+    whole = math.sqrt(sum(b.double().square().sum().item() for b in res["cpu"][1]
+                          if b is not None))
+    leaf_err = sorted((((a.double() - b.double()).norm().item() / whole, n) for n, a, b in
+                       zip(names, res["cuda"][1], res["cpu"][1]) if b is not None), reverse=True)
+    grad_bar = CPU_TOL if kinks["flips"] == 0 else KINK_GRAD_TOL
+    if not (max(errs[:4]) <= CPU_TOL and bg_err <= CPU_TOL and grad_err <= grad_bar):
+        raise AssertionError(f"LayoutGAN++ card vs CPU: outputs {errs}, bg_rec {bg_err}, D "
+                             f"gradient {grad_err} (bar {grad_bar}; lrelu inputs on the other "
+                             f"side of 0: {kinks}; worst leaves {leaf_err[:3]})")
+    rec["card_vs_cpu"] = dict(outputs=dict(zip(LGPP_NAMES[:4], errs[:4])), bg_rec_rel=bg_err,
+                              d_grad_rel_l2=grad_err, d_grad_bar=grad_bar, lrelu_kink_flips=kinks,
+                              worst_leaves=leaf_err[:5])
+    log(f"LayoutGAN++ fp32 B=2, card vs CPU: outputs {', '.join(f'{e:.2e}' for e in errs[:4])}, "
+        f"bg_rec {bg_err:.2e} of max, D's gradient relative L2 {grad_err:.2e} (bar "
+        f"{grad_bar:.0e}: {kinks['flips']} of the D's lrelu inputs on the other side of 0, the "
+        f"largest |input| among them {kinks['largest_abs_input']:.2e}); the leaves with most of "
+        f"the difference (||g - w|| over the whole ||w||) "
+        + ", ".join(f"{n} {e:.2e}" for e, n in leaf_err[:3]))
+    del cpu_g, cpu_d, res
+
+    # times, outside the counted run
+    for dtype_name, (G, D) in models.items():
+        with torch.inference_mode():
+            g_ms = cuda_ms(torch, lambda: G(**g_inputs(full)), 5, warmup=1)
+            d_ms = cuda_ms(torch, lambda: D(**d_inputs(full), reconst=True), 5, warmup=1)
+        db_ms = cuda_ms(torch, lambda: lgpp_d_backward(torch, D, d_inputs(full), cots), 3,
+                        warmup=1)
+        rec[dtype_name].update(g_forward_ms=g_ms, d_forward_ms=d_ms, d_forward_backward_ms=db_ms,
+                               g_images_per_s=args.batch / g_ms * 1e3)
+        log(f"LayoutGAN++ {dtype_name} batch {args.batch}: G forward {g_ms:.2f} ms "
+            f"({rec[dtype_name]['g_images_per_s']:.1f} images/s), D(reconst) forward {d_ms:.2f} "
+            f"ms, D forward + backward {db_ms:.2f} ms  [{card}]")
+    log(f"main path (LayoutGAN++): launches {launches} (as expected; {enc_calls} bias_act calls "
+        f"an encoder forward, {dec_calls} a decoder forward)")
+    del models, seen
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1770,6 +2296,7 @@ def main() -> int:
     from layoutdetr_tpu_torch.config import GeneratorConfig
     from layoutdetr_tpu_torch.generate import generate_layouts
     from layoutdetr_tpu_torch.models.generator import Generator
+    from layoutdetr_tpu_torch.models.layoutganpp import LayoutGanPPConfig
     from layoutdetr_tpu_torch.ops import _build, attention
     from layoutdetr_tpu_torch.ops import bias_act as bias_act_mod
 
@@ -1803,8 +2330,13 @@ def main() -> int:
     shapes = list(dict.fromkeys(serving_attention_shapes(args.batch)
                                 + run_attention_shapes(args.batch, run_t)
                                 + eval_attention_shapes(args.batch, run_t)
-                                + http_attention_shapes()))
+                                + http_attention_shapes()
+                                + layoutganpp_attention_shapes(args.batch)))
     attn_cases = attention_phase(torch, attention, args.seed, shapes)
+    torch.manual_seed(args.seed)
+    enc_calls = encoder_calls(torch, LayoutGanPPConfig(), args.batch)
+    enc_cases = bias_act_phase(torch, bias_act_mod, enc_calls, args.seed, per="encoder forward")
+    torch.cuda.empty_cache()
     cfg = GeneratorConfig()
     torch.manual_seed(args.seed)
     with torch.device("cuda"):
@@ -1930,16 +2462,24 @@ def main() -> int:
     # 11. HTTP serving, slice 5's serving path, on phase 10 (b)'s checkpoint
     http = http_serving_phase(torch, np, args, card, attention, bias_act_mod, workdir.name,
                               evaluation["wide_ckpt"])
-    workdir.cleanup()
 
     # 12. the bench, slice 5's measurement path
     bench_rec = bench_phase(torch, args, card, attention, bias_act_mod)
 
+    # 13. the ViT backbone, slice 6's paths, on phase 9's zips
+    vit = vit_phase(torch, np, args, card, attention, bias_act_mod, workdir.name, zip_path,
+                    val_path, run_t)
+    workdir.cleanup()
+
+    # 14. LayoutGAN++, slice 6's other model family
+    lgpp = layoutganpp_phase(torch, np, args, card, attention, bias_act_mod, len(enc_calls))
+
     kernels = kernel_records(attn_cases, bias_cases, serve_launches, train, run, evaluation, http,
-                             bench_rec)
+                             bench_rec, vit, lgpp, enc_cases)
     log(json.dumps({"serving": serving, "train": train, "step_correctness": correctness,
                     "training_run": run, "evaluation": evaluation, "http_serving": http,
-                    "bench": bench_rec,
+                    "bench": bench_rec, "vit": vit, "layoutganpp": lgpp,
+                    "bias_act_encoder_cases": enc_cases,
                     "model_max_abs": err, "model_bf16_max_abs": err_bf16,
                     "model_bf16_vs_fp32_max_abs": err_bf16_fp32, "cpu_max_abs": err_cpu,
                     "attention_cases": attn_cases, "bias_act_cases": bias_cases,
@@ -2153,7 +2693,8 @@ def largest_lrelu(cases: list) -> dict:
 
 
 def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run: dict,
-                   evaluation: dict, http: dict, bench_rec: dict) -> list:
+                   evaluation: dict, http: dict, bench_rec: dict, vit: dict, lgpp: dict,
+                   enc_cases: list) -> list:
     """The kernels line: each kernel at its representative case (fp32,
     T=256 for attention; one fp32 step's 48 bias_act calls summed), with
     the launches of each main path that runs it (``launches_by_path``) and
@@ -2162,7 +2703,11 @@ def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run
     steps), the deterministic one under fused_attention (serving, the
     training run's reg steps, summaries, previews and metric ticks, the
     evaluation, the HTTP server and the bench's --infer; the bench's train
-    step runs the dropout form and both bias_act kernels)."""
+    step runs the dropout form and both bias_act kernels; the ViT's serving,
+    train step and training run with its evaluation, and LayoutGAN++'s
+    forwards and D backward, each a path of its own). bias_act's record
+    also sums one LayoutGAN++ bg_encoder forward's calls
+    (``per_encoder_forward``)."""
     def attn(rate):
         return next(c for c in attn_cases if c["dtype"] == "float32" and c["shape"][2] == 256
                     and c["dropout_rate"] == rate)
@@ -2179,6 +2724,12 @@ def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run
     by_path["fused_attention"]["bench_infer"] = bench_rec["infer"]["launches"]["fused_attention"]
     for k in ("fused_attention_dropout", "bias_act", "bias_act_backward"):
         by_path[k]["bench_train"] = bench_rec["train"]["launches"][k]
+    vit_paths = dict(vit_serving=vit["serving"]["launches"], vit_train_step=vit["train"][0]["launches"],
+                     vit_training_run=vit["training_run"]["launches"], layoutganpp=lgpp["launches"])
+    for path, launches in vit_paths.items():
+        for k, n in launches.items():
+            if n:
+                by_path[k][path] = n
     src = "layoutdetr_tpu_torch/ops/csrc/"
     out = []
     for name, rate in (("fused_attention", 0.0), ("fused_attention_dropout", DROPOUT)):
@@ -2205,12 +2756,17 @@ def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run
                                                bound_ms=tot16[f"{key}_bound_ms"],
                                                library_ms=tot16[f"library_{key}_ms"],
                                                ms_on_library_calls=tot16[f"{key}_ms_library_calls"]),
+                        per_encoder_forward=per_step_totals(enc_cases, "float32"),
+                        per_encoder_forward_bfloat16=per_step_totals(enc_cases, "bfloat16"),
+                        encoder_cases=enc_cases,
                         note="ms, plain_ms and bound_ms sum one step's 48 calls; library_ms "
                              "sums only the library_calls calls that are linear with gain 1 and "
                              "no clamp (torch.add forward, torch.sum of dy for db backward), "
                              "beside the kernel's ms_on_library_calls on the same calls; the "
                              "lrelu calls have no library call (none); max_abs_err is relative "
-                             "to max |y| (|dx|, |db|)"))
+                             "to max |y| (|dx|, |db|); per_encoder_forward sums one LayoutGAN++ "
+                             "bg_encoder forward's calls the same way (its linear skip's library "
+                             "call is torch.add(gain * b, x, alpha=gain) forward, none backward)"))
     return out
 
 

@@ -4,9 +4,9 @@ reconstruction decoders.
 Counterpart of ``layoutdetr_tpu/models/discriminator.py`` (reference
 networks_detr.py:190-361):
 
-- conditional critic: its own ResNet50 + per-element (bbox, label, text,
-  text-length) features -> DETR ``Transformer(with_token=True)`` -> the
-  CLS logit;
+- conditional critic: its own image backbone (ResNet50 or ViT) +
+  per-element (bbox, label, text, text-length) features -> DETR
+  ``Transformer(with_token=True)`` -> the CLS logit;
 - unconditional critic: (bbox, label) -> ``TransformerWithTokenEncoder``
   -> the CLS logit;
 - with ``reconst=True`` (the Dreal pass): the reconstruction decoders
@@ -41,7 +41,7 @@ from layoutdetr_tpu_torch.models.detr_transformer import (
     TransformerWithTokenEncoder,
     _Stack,
 )
-from layoutdetr_tpu_torch.models.generator import _BackboneBody, text_reconstruction_loss
+from layoutdetr_tpu_torch.models.generator import image_backbone, text_reconstruction_loss
 from layoutdetr_tpu_torch.models.layers import MLP, Dense, padding_bias
 from layoutdetr_tpu_torch.models.position_encoding import position_embedding_sine
 from layoutdetr_tpu_torch.models.stylegan2 import Decoder
@@ -66,14 +66,12 @@ def reconst_decode(x0, padding_mask, pos_token, fc_in: Dense, stack: _Stack,
 class Discriminator(nn.Module):
     def __init__(self, cfg: GeneratorConfig, max_bbox: int = 50, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.backbone != "resnet50":
-            raise NotImplementedError(f"backbone {cfg.backbone!r} is not ported yet")
         self.cfg = cfg
         self.dtype = dtype
         d, f = cfg.hidden_dim, cfg.bert_f_dim
         # conditional critic
-        self.backbone = nn.ModuleList([_BackboneBody(cfg.backbone_stage_sizes, dtype)])
-        self.input_proj = nn.Conv2d(2048, d, kernel_size=1)
+        self.backbone, channels = image_backbone(cfg, dtype)
+        self.input_proj = nn.Conv2d(channels, d, kernel_size=1)
         self.fc_bbox = Dense(4, f, dtype=dtype)
         self.emb_label = nn.Embedding(cfg.num_bbox_labels, f)
         self.text_encoder = TextEncoder(cfg.encoder_bert_config(), dtype=dtype)
@@ -127,7 +125,7 @@ class Discriminator(nn.Module):
         valid = ~padding_mask
 
         # conditional critic (networks_detr.py:282-300)
-        feat = self.backbone[0].body(background.permute(0, 3, 1, 2))
+        feat = self.backbone(background.permute(0, 3, 1, 2))
         proj = F.conv2d(feat.to(dt), self.input_proj.weight.to(dt), self.input_proj.bias.to(dt))
         pos = position_embedding_sine(feat.permute(0, 2, 3, 1), cfg.hidden_dim // 2)
         bf = self.fc_bbox(bbox.to(dt))

@@ -1,7 +1,8 @@
 """LayoutDETR Generator.
 
 Counterpart of ``layoutdetr_tpu/models/generator.py:132-330``
-(reference networks_detr.py:65-187): background -> ResNet50 ->
+(reference networks_detr.py:65-187): background -> the image backbone
+(ResNet50, or the ViT of ``models/vit.py`` with ``backbone='vit'``) ->
 ``input_proj`` + sine position embedding; noise, labels, per-element
 BERT CLS features and character-length embeddings -> ``fc_in``; then the
 DETR transformer and ``bbox_embed`` + sigmoid. With ``reconst=True`` (the
@@ -15,7 +16,8 @@ frozen text encoder runs its self-attention through the fused kernel
 (``flash_attention=True``, the default) when no gradient is recorded;
 ``flash_attention=False`` gives the same function with plain tensor ops.
 
-Parameter names follow the reference state dict (``backbone.0.body.*``,
+Parameter names follow the reference state dict (``backbone.0.body.*``;
+the ViT's ``backbone.patch_embed``, ``backbone.blocks.{i}.*`` ...,
 ``input_proj``, ``fc_z``, ``emb_label``, ``text_encoder.*``,
 ``enc_text_len``, ``fc_in``, ``transformer.*``, ``bbox_embed``,
 ``fc_z_rec``, ``fc_out_cls``, ``text_decoder.*``, ``fc_text_len_rec``).
@@ -38,15 +40,37 @@ from layoutdetr_tpu_torch.models.layers import MLP, Dense
 from layoutdetr_tpu_torch.models.position_encoding import position_embedding_sine
 from layoutdetr_tpu_torch.models.resnet import ResNet50
 from layoutdetr_tpu_torch.models.stylegan2 import normalize_2nd_moment
+from layoutdetr_tpu_torch.models.vit import VisionTransformer
 
 
 class _BackboneBody(nn.Module):
-    """Holds the ResNet as ``body`` so that names read ``backbone.0.body.*``
-    as in the reference's DETR Joiner."""
+    """Index 0 of the Joiner: the ResNet as ``body``."""
 
     def __init__(self, stage_sizes, dtype):
         super().__init__()
         self.body = ResNet50(stage_sizes, dtype=dtype)
+
+
+class _Joiner(nn.ModuleList):
+    """Holds the ResNet at index 0 as ``body``, so that names read
+    ``backbone.0.body.*`` as in the reference's DETR Joiner."""
+
+    def __init__(self, stage_sizes, dtype):
+        super().__init__([_BackboneBody(stage_sizes, dtype)])
+
+    def forward(self, x):
+        return self[0].body(x)
+
+
+def image_backbone(cfg: GeneratorConfig, dtype: torch.dtype):
+    """(backbone, its output channels) for ``cfg.backbone``: the ViT at its
+    defaults (768) for 'vit', else the ResNet50 (2048), as JAX's
+    ``_image_backbone`` builds them. Either maps an NCHW background to an
+    NCHW feature map."""
+    if cfg.backbone == "vit":
+        vit = VisionTransformer(cfg.background_size, dtype=dtype)
+        return vit, vit.embed_dim
+    return _Joiner(cfg.backbone_stage_sizes, dtype), 2048
 
 
 def make_text_feature_fn(text_encoder: TextEncoder):
@@ -80,12 +104,10 @@ class Generator(nn.Module):
     def __init__(self, cfg: GeneratorConfig, dtype: torch.dtype = torch.float32,
                  flash_attention: bool = True):
         super().__init__()
-        if cfg.backbone != "resnet50":
-            raise NotImplementedError(f"backbone {cfg.backbone!r} is not ported yet")
         self.cfg = cfg
         self.dtype = dtype
-        self.backbone = nn.ModuleList([_BackboneBody(cfg.backbone_stage_sizes, dtype)])
-        self.input_proj = nn.Conv2d(2048, cfg.hidden_dim, kernel_size=1)
+        self.backbone, channels = image_backbone(cfg, dtype)
+        self.input_proj = nn.Conv2d(channels, cfg.hidden_dim, kernel_size=1)
         self.fc_z = Dense(cfg.max_elements * cfg.z_dim, cfg.bert_f_dim, dtype=dtype)
         self.emb_label = nn.Embedding(cfg.num_bbox_labels, cfg.bert_f_dim)
         self.text_encoder = TextEncoder(cfg.encoder_bert_config(flash_attention), dtype=dtype)
@@ -121,7 +143,7 @@ class Generator(nn.Module):
         b, n = bbox_class.shape
 
         # background features, channels first inside, channels last out
-        feat = self.backbone[0].body(background.permute(0, 3, 1, 2))
+        feat = self.backbone(background.permute(0, 3, 1, 2))
         proj = F.conv2d(feat.to(dt), self.input_proj.weight.to(dt), self.input_proj.bias.to(dt))
         feat = feat.permute(0, 2, 3, 1)
         pos = position_embedding_sine(feat, cfg.hidden_dim // 2)

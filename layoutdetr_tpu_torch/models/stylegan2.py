@@ -1,13 +1,16 @@
-"""StyleGAN2 pieces of the port: the Discriminator's background decoder.
+"""StyleGAN2 pieces of the port: the background decoder and encoder.
 
-Counterpart of ``layoutdetr_tpu/models/stylegan2.py`` for what
-``Decoder`` reaches (reference networks_stylegan2.py:23-994):
-``FullyConnectedLayer``, ``modulated_conv2d``, ``SynthesisLayer``,
-``ToRGBLayer``, ``SynthesisBlock`` ('skip' architecture),
-``SynthesisNetwork``, ``DecoderMappingNetwork`` and ``Decoder``, the
-latter as D instantiates it (networks_detr.py:261: no noise, no conv
-clamp). ``Conv2dLayer``, ``MappingNetwork`` and the encoder blocks are
-not on the port's path yet.
+Counterpart of ``layoutdetr_tpu/models/stylegan2.py`` (reference
+networks_stylegan2.py:23-994): ``FullyConnectedLayer``,
+``modulated_conv2d``, ``SynthesisLayer``, ``ToRGBLayer``,
+``SynthesisBlock`` ('skip' architecture), ``SynthesisNetwork``,
+``DecoderMappingNetwork`` and ``Decoder``, the latter as D instantiates
+it (networks_detr.py:261: no noise, no conv clamp); and the encoder stack
+of the LayoutGAN++ variant: ``Conv2dLayer``, ``MappingNetwork``,
+``DiscriminatorBlock`` ('resnet' and 'skip'), ``MinibatchStdLayer``,
+``EncoderEpilogue`` and ``Encoder``, under StyleGAN2's names
+(``b256.fromrgb``, ``b256.conv0``, ``b256.conv1``, ``b256.skip``,
+``b4.conv``, ``b4.fc``, ``b4.out``).
 
 Every bias + activation goes through ``ops.bias_act`` (a CUDA kernel on
 the card, forward and backward). Inside, activations are NCHW and
@@ -16,7 +19,9 @@ weights torch's OIHW with the reference's names and shapes (``const``
 the reference's; ``Decoder`` returns the image channels last,
 [B, S, S, 3], as the JAX module does. Modulation runs as scale inputs ->
 one shared-weight conv -> demodulate outputs, the JAX package's form.
-As in JAX, the ``affine`` layers compute in fp32 whatever ``dtype`` is.
+As in JAX, the ``affine`` layers, the mapping net's ``embed`` and the
+encoder epilogue's ``fc`` and ``out`` compute in fp32 whatever ``dtype``
+is.
 The FIR filters are non-persistent buffers, so they live on the model's
 device (a host filter would be copied, and the host stalled, at every
 use) and stay out of the state dict.
@@ -33,7 +38,7 @@ from torch import nn
 
 from layoutdetr_tpu_torch.ops.bias_act import activation_funcs, bias_act
 from layoutdetr_tpu_torch.ops.conv2d_resample import conv2d_resample
-from layoutdetr_tpu_torch.ops.upfirdn2d import setup_filter, upsample2d
+from layoutdetr_tpu_torch.ops.upfirdn2d import downsample2d, setup_filter, upsample2d
 
 RESAMPLE_FILTER = (1, 3, 3, 1)
 
@@ -232,3 +237,202 @@ class Decoder(nn.Module):
 
     def forward(self, z):
         return self.synthesis(self.mapping(z)).permute(0, 2, 3, 1)
+
+
+class Conv2dLayer(nn.Module):
+    """Equalized-LR conv with optional up/down resampling
+    (networks_stylegan2.py:131-184): weight [out, in, k, k] ~ N(0, 1)
+    scaled at run time by 1 / sqrt(in * k * k), then ``bias_act`` with the
+    activation's default gain times ``gain`` and the clamp
+    ``conv_clamp * gain``. Without ``bias`` the layer holds no bias and
+    ``bias_act`` adds zeros. x: [N, in, H, W], cast to ``dtype``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, bias: bool = True,
+                 activation: str = "linear", up: int = 1, down: int = 1,
+                 resample_filter: Sequence[int] = RESAMPLE_FILTER,
+                 conv_clamp: Optional[float] = None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.activation = activation
+        self.up = up
+        self.down = down
+        self.padding = kernel_size // 2
+        self.conv_clamp = conv_clamp
+        self.compute_dtype = dtype
+        self.weight_gain = 1.0 / math.sqrt(in_channels * kernel_size ** 2)
+        self.register_buffer("resample_filter", torch.tensor(setup_filter(resample_filter)),
+                             persistent=False)
+        self.weight = nn.Parameter(torch.randn(out_channels, in_channels, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+
+    def forward(self, x, gain: float = 1.0):
+        dt = self.compute_dtype
+        x = conv2d_resample(x.to(dt), (self.weight * self.weight_gain).to(dt),
+                            f=self.resample_filter, up=self.up, down=self.down,
+                            padding=self.padding, flip_weight=(self.up == 1))
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        act_gain = activation_funcs[self.activation].def_gain * gain
+        act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
+        return bias_act(x, b, dim=1, act=self.activation, gain=act_gain, clamp=act_clamp)
+
+
+class MappingNetwork(nn.Module):
+    """z (and an optional label c) -> w (networks_stylegan2.py:189-267):
+    2nd-moment normalized z, ``embed`` of c (fp32) normalized and
+    concatenated, ``num_layers`` lrelu FCs at ``lr_multiplier``; broadcast
+    over ``num_ws`` unless it is None. The JAX package's form: no ``w_avg``
+    tracking and no truncation."""
+
+    def __init__(self, z_dim: int, c_dim: int, w_dim: int, num_ws: Optional[int],
+                 num_layers: int = 8, lr_multiplier: float = 0.01,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.z_dim, self.c_dim = z_dim, c_dim
+        self.num_ws = num_ws
+        self.num_layers = num_layers
+        if c_dim > 0:
+            self.embed = FullyConnectedLayer(c_dim, w_dim)
+        in_features = z_dim + (w_dim if c_dim > 0 else 0)
+        for i in range(num_layers):
+            self.add_module(f"fc{i}", FullyConnectedLayer(in_features if i == 0 else w_dim, w_dim,
+                                                          activation="lrelu",
+                                                          lr_multiplier=lr_multiplier, dtype=dtype))
+
+    def forward(self, z, c=None):
+        x = normalize_2nd_moment(z.float()) if self.z_dim > 0 else None
+        if self.c_dim > 0:
+            y = normalize_2nd_moment(self.embed(c.float()))
+            x = torch.cat([x, y], dim=1) if x is not None else y
+        for i in range(self.num_layers):
+            x = getattr(self, f"fc{i}")(x)
+        if self.num_ws is not None:
+            x = x[:, None, :].expand(x.shape[0], self.num_ws, x.shape[1])
+        return x
+
+
+class DiscriminatorBlock(nn.Module):
+    """One downsampling level (networks_stylegan2.py:553-634). ``in_channels``
+    0 = the first block, which reads the image through ``fromrgb``; so does
+    every block of the 'skip' architecture, which also downsamples the
+    image for the next. 'resnet' adds a bias-less 1x1 ``skip`` (gain
+    sqrt(1/2)) to conv1's output (also at gain sqrt(1/2))."""
+
+    def __init__(self, in_channels: int, tmp_channels: int, out_channels: int,
+                 img_channels: int = 3, architecture: str = "resnet", activation: str = "lrelu",
+                 resample_filter: Sequence[int] = RESAMPLE_FILTER,
+                 conv_clamp: Optional[float] = None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.in_channels = in_channels
+        self.architecture = architecture
+        self.register_buffer("resample_filter", torch.tensor(setup_filter(resample_filter)),
+                             persistent=False)
+        common = dict(activation=activation, conv_clamp=conv_clamp, dtype=dtype)
+        if in_channels == 0 or architecture == "skip":
+            self.fromrgb = Conv2dLayer(img_channels, tmp_channels, 1, **common)
+        if architecture == "resnet":
+            self.skip = Conv2dLayer(tmp_channels, out_channels, 1, bias=False, down=2,
+                                    resample_filter=resample_filter, dtype=dtype)
+        self.conv0 = Conv2dLayer(tmp_channels, tmp_channels, 3, **common)
+        self.conv1 = Conv2dLayer(tmp_channels, out_channels, 3, down=2,
+                                 resample_filter=resample_filter, **common)
+
+    def forward(self, x, img):
+        """x: [N, C, H, W] or None (the first block); img: [N, 3, H, W] or
+        None. Returns (x at half the resolution, img for the next block)."""
+        if self.in_channels == 0 or self.architecture == "skip":
+            y = self.fromrgb(img)
+            x = x + y if x is not None else y
+            img = downsample2d(img, self.resample_filter) if self.architecture == "skip" else None
+        if self.architecture == "resnet":
+            y = self.skip(x, gain=math.sqrt(0.5))
+            x = self.conv0(x)
+            x = self.conv1(x, gain=math.sqrt(0.5))
+            return y + x, img
+        return self.conv1(self.conv0(x)), img
+
+
+class MinibatchStdLayer(nn.Module):
+    """Cross-sample standard-deviation features (networks_stylegan2.py:642-666)
+    appended as ``num_channels`` maps. As in the JAX module, sample i takes
+    the statistic of subgroup i // group_size (``jnp.repeat``), where the
+    reference's ``repeat`` tiles them (i % (N // group_size)); the two agree
+    when N <= group_size. Nothing in the models calls it (JAX's ``Encoder``
+    does not either)."""
+
+    def __init__(self, group_size: Optional[int] = 4, num_channels: int = 1):
+        super().__init__()
+        self.group_size = group_size
+        self.num_channels = num_channels
+
+    def forward(self, x):
+        n, c, h, w = x.shape
+        g = min(self.group_size, n) if self.group_size is not None else n
+        f = self.num_channels
+        y = x.reshape(g, -1, f, c // f, h, w)
+        y = y - y.mean(dim=0)
+        y = y.square().mean(dim=0)
+        y = torch.sqrt(y + 1e-8)
+        y = y.mean(dim=(2, 3, 4))  # [N // g, F]
+        y = y.repeat_interleave(g, dim=0)[:, :, None, None].expand(n, f, h, w)
+        return torch.cat([x, y.to(x.dtype)], dim=1)
+
+
+class EncoderEpilogue(nn.Module):
+    """The 4x4 level -> embedding (networks_stylegan2.py:797-840): (with
+    'skip') ``fromrgb`` added, ``conv`` 3x3, flattened in NCHW order, then
+    the fp32 FCs ``fc`` (activation) and ``out`` (linear). Returns fp32
+    [N, out_channels]."""
+
+    def __init__(self, in_channels: int, out_channels: int, resolution: int = 4,
+                 img_channels: int = 3, architecture: str = "resnet", activation: str = "lrelu",
+                 conv_clamp: Optional[float] = None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.architecture = architecture
+        if architecture == "skip":
+            self.fromrgb = Conv2dLayer(img_channels, in_channels, 1, activation=activation,
+                                       dtype=dtype)
+        self.conv = Conv2dLayer(in_channels, in_channels, 3, activation=activation,
+                                conv_clamp=conv_clamp, dtype=dtype)
+        self.fc = FullyConnectedLayer(in_channels * resolution ** 2, in_channels,
+                                      activation=activation)
+        self.out = FullyConnectedLayer(in_channels, out_channels)
+
+    def forward(self, x, img):
+        if self.architecture == "skip":
+            x = x + self.fromrgb(img)
+        x = self.conv(x)
+        return self.out(self.fc(x.flatten(1)))
+
+
+def encoder_resolutions(img_resolution: int) -> list:
+    """``Encoder``'s block resolutions, largest (``img_resolution`` rounded
+    up to a power of 2) first, down to 8."""
+    return [2 ** i for i in range(int(math.ceil(math.log2(img_resolution))), 2, -1)]
+
+
+class Encoder(nn.Module):
+    """Image -> embedding (networks_stylegan2.py:848-898): blocks
+    ``b{res}`` from ``img_resolution`` (rounded up to a power of 2) down to
+    8, channels min(channel_base // res, channel_max), then the epilogue
+    ``b4``. img: [N, img_channels, S, S] -> fp32 [N, out_channels]. As in
+    JAX, no minibatch-stddev layer runs."""
+
+    def __init__(self, img_resolution: int, out_channels: int, img_channels: int = 3,
+                 architecture: str = "resnet", channel_base: int = 32768, channel_max: int = 512,
+                 conv_clamp: Optional[float] = 256.0, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.block_resolutions = encoder_resolutions(img_resolution)
+        channels = {res: min(channel_base // res, channel_max)
+                    for res in self.block_resolutions + [4]}
+        for res in self.block_resolutions:
+            in_ch = channels[res] if res < self.block_resolutions[0] else 0
+            self.add_module(f"b{res}", DiscriminatorBlock(
+                in_ch, channels[res], channels[res // 2], img_channels, architecture,
+                conv_clamp=conv_clamp, dtype=dtype))
+        self.b4 = EncoderEpilogue(channels[4], out_channels, img_channels=img_channels,
+                                  architecture=architecture, conv_clamp=conv_clamp, dtype=dtype)
+
+    def forward(self, img):
+        x = None
+        for res in self.block_resolutions:
+            x, img = getattr(self, f"b{res}")(x, img)
+        return self.b4(x, img)

@@ -397,12 +397,16 @@ def bias_act(x, b=None, dim: int = 1, act: str = "linear", alpha=None, gain=None
     comes back in b's dtype. b may have any floating dtype and layout: on
     the card the kernels read a contiguous fp32 or bf16 b as it is, and
     any other b is first made one (fp16 and fp64 widened or rounded to
-    fp32), which costs a launch. ``bias_act_forward`` and
-    ``bias_act_backward`` take only the former."""
+    fp32), which costs a launch. x may have any layout too: on the card a
+    non-contiguous x (a convolution's channels-last output, say) is first
+    copied to a contiguous one. ``bias_act_forward`` and
+    ``bias_act_backward`` take only contiguous tensors."""
     alpha, gain = _resolve(act, alpha, gain)
     if clamp is not None and clamp < 0:
         raise ValueError("clamp must be >= 0")
     dim = dim % x.dim()
+    if x.is_cuda and not x.is_contiguous():
+        x = x.contiguous()
     if b is None:
         b = x.new_zeros(x.shape[dim], dtype=torch.float32)
     elif x.is_cuda and (b.dtype not in _VEC or not b.is_contiguous()):

@@ -110,3 +110,17 @@ def upsample2d(x, f, up=2, padding=0, flip_filter=False, gain=1):
     py1 += (fh - upy) // 2
     return upfirdn2d(x, f, up=up, padding=[px0, px1, py0, py1], flip_filter=flip_filter,
                      gain=gain * upx * upy)
+
+
+def downsample2d(x, f, down=2, padding=0, flip_filter=False, gain=1):
+    """Downsample with the given filter (reference upfirdn2d.py:353-389)."""
+    downx, downy = _parse_scaling(down)
+    px0, px1, py0, py1 = _parse_padding(padding)
+    fw = int(f.shape[-1]) if f is not None else 1
+    fh = int(f.shape[0]) if f is not None else 1
+    px0 += (fw - downx + 1) // 2
+    px1 += (fw - downx) // 2
+    py0 += (fh - downy + 1) // 2
+    py1 += (fh - downy) // 2
+    return upfirdn2d(x, f, down=down, padding=[px0, px1, py0, py1], flip_filter=flip_filter,
+                     gain=gain)

@@ -16,7 +16,7 @@ snapshots and exits. argparse instead of click. Differences:
   every ``--metric-ticks``, on G_ema where it lives (``make_metrics_fn``);
   ``--layoutnet-ckpt`` is a torch state dict;
 - one GPU: ``--chips``/``--gpus`` and ``--model-parallel`` above 1 raise,
-  and so do ``--backbone vit`` and ``--load-patches`` (ROADMAP Queue A);
+  and so does ``--load-patches`` (ROADMAP Queue A);
 - ``--remat`` is accepted and does nothing: batch 16 fits an 80 GB card.
 
 Importing this module starts nothing; ``main(argv)`` runs the CLI and
@@ -189,8 +189,6 @@ def _check_supported(ap: argparse.ArgumentParser, opts) -> None:
     devices = opts.chips if opts.chips is not None else opts.gpus
     if (devices or 1) > 1 or opts.model_parallel > 1:
         ap.error("more than one GPU waits for ROADMAP Queue A item 19 (multi-GPU)")
-    if opts.backbone != "resnet50":
-        ap.error("--backbone vit waits for ROADMAP Queue A item 19")
     from layoutdetr_tpu_torch.metrics import metric_main
 
     for m in opts.metrics:

@@ -3,22 +3,27 @@
 ``generator_state_dict_from_jax`` and ``discriminator_state_dict_from_jax``
 take the JAX Generator's / Discriminator's parameters (the ``params``
 tree of ``init`` or of an orbax checkpoint, as nested dicts of numpy
-arrays), ``layoutnet_state_dict_from_jax`` and
+arrays), ``layoutganpp_generator_state_dict_from_jax`` and
+``layoutganpp_discriminator_state_dict_from_jax`` those of the LayoutGAN++
+pair, ``layoutnet_state_dict_from_jax`` and
 ``inception_state_dict_from_jax`` those of the metric networks, and
 return a ``state_dict`` that the port module's
 ``load_state_dict(..., strict=True)`` accepts, under the reference's
-networks_detr names. Conventions converted (the inverse of the JAX
-package's torch converter):
+networks_detr names (the JAX tree's, dotted, where the repository holds
+no reference state dict: the ViT and LayoutGAN++). Conventions converted
+(the inverse of the JAX package's torch converter):
 
 - Dense kernel [in, out] -> Linear weight [out, in];
-- conv kernel HWIO -> OIHW; ``input_proj`` Dense [2048, D] -> 1x1 conv
-  [D, 2048, 1, 1];
+- conv kernel HWIO -> OIHW; ``input_proj`` Dense [C, D] -> 1x1 conv
+  [D, C, 1, 1] (C 2048 for the ResNet, 768 for the ViT);
 - LayerNorm scale/bias -> weight/bias;
 - attention in_proj_kernel [D, 3D] -> in_proj_weight [3D, D],
   out_kernel/out_bias -> out_proj.weight/bias;
-- StyleGAN2 FullyConnectedLayer weight [in, out] -> [out, in], conv
+- StyleGAN2 FullyConnectedLayer weight [in, out] -> [out, in] (the
+  encoder epilogue's ``fc`` rows are already in NCHW flatten order), conv
   weights HWIO -> OIHW, ``const`` [r, r, C] -> [C, r, r]; the
-  reconstruction decoders' ``pos_token`` [max_bbox, D] -> [max_bbox, 1, D].
+  reconstruction decoders' ``pos_token`` [max_bbox, D] -> [max_bbox, 1, D]
+  (LayoutGAN++'s stays [max_bbox, f_dim]).
 
 Every leaf is consumed; a missing one raises, and so does any leaf left
 over. One exception: a BERT layer's ``crossattention`` block, which the
@@ -40,6 +45,7 @@ import numpy as np
 import torch
 
 from layoutdetr_tpu_torch.config import GeneratorConfig
+from layoutdetr_tpu_torch.models.stylegan2 import encoder_resolutions
 
 
 def _flatten(tree, prefix=()):
@@ -126,6 +132,26 @@ class JaxParams:
                     self.conv(f"{s}/downsample_conv", f"{d}.downsample.0")
                     self.frozen_bn(f"{s}/downsample_bn", f"{d}.downsample.1")
 
+    def vit_blocks(self, src: str, dst: str):
+        """As many ``blocks_{i}`` as the tree holds -> ``blocks.{i}``."""
+        i = 0
+        while _src(src, f"blocks_{i}/qkv/kernel") in self.flat:
+            s, d = _src(src, f"blocks_{i}"), _dst(dst, f"blocks.{i}")
+            for name in ("norm1", "norm2"):
+                self.layernorm(f"{s}/{name}", f"{d}.{name}")
+            for name in ("qkv", "proj", "fc1", "fc2"):
+                self.dense(f"{s}/{name}", f"{d}.{name}")
+            i += 1
+
+    def vit(self, src: str, dst: str):
+        """JAX ``VisionTransformer`` -> port ``VisionTransformer``: the patch
+        kernel HWIO -> OIHW, ``pos_embed`` as it is."""
+        self.conv(_src(src, "patch_embed"), _dst(dst, "patch_embed"))
+        self.put(_dst(dst, "patch_embed.bias"), self.take(_src(src, "patch_embed/bias")))
+        self.put(_dst(dst, "pos_embed"), self.take(_src(src, "pos_embed")))
+        self.vit_blocks(src, dst)
+        self.layernorm(_src(src, "norm"), _dst(dst, "norm"))
+
     def bert_encoder(self, src: str, dst: str, num_layers: int,
                      encoder_width: Optional[int] = None):
         """JAX ``BertModel`` params -> port ``BertModel``/``TextEncoder``;
@@ -198,6 +224,33 @@ class JaxParams:
                 self.put(f"{d}.{layer}.bias", self.take(f"{s}/{layer}/bias"))
                 self.fully_connected(f"{s}/{layer}/affine", f"{d}.{layer}.affine")
 
+    def conv2d_layer(self, src: str, dst: str, bias: bool = True):
+        """StyleGAN2 Conv2dLayer: weight HWIO -> OIHW, and its bias."""
+        self.conv(src, dst, leaf="weight")
+        if bias:
+            self.put(_dst(dst, "bias"), self.take(_src(src, "bias")))
+
+    def stylegan2_encoder(self, src: str, dst: str, img_resolution: int,
+                          architecture: str = "resnet"):
+        """JAX StyleGAN2 ``Encoder`` -> port ``Encoder``: blocks ``b{res}``
+        (``fromrgb``, ``skip`` without bias, ``conv0``, ``conv1``) and the
+        epilogue ``b4`` (``conv``, ``fc``, ``out``)."""
+        resolutions = encoder_resolutions(img_resolution)
+        for res in resolutions:
+            s, d = _src(src, f"b{res}"), _dst(dst, f"b{res}")
+            if res == resolutions[0] or architecture == "skip":
+                self.conv2d_layer(f"{s}/fromrgb", f"{d}.fromrgb")
+            if architecture == "resnet":
+                self.conv2d_layer(f"{s}/skip", f"{d}.skip", bias=False)
+            for name in ("conv0", "conv1"):
+                self.conv2d_layer(f"{s}/{name}", f"{d}.{name}")
+        s, d = _src(src, "b4"), _dst(dst, "b4")
+        if architecture == "skip":
+            self.conv2d_layer(f"{s}/fromrgb", f"{d}.fromrgb")
+        self.conv2d_layer(f"{s}/conv", f"{d}.conv")
+        for name in ("fc", "out"):
+            self.fully_connected(f"{s}/{name}", f"{d}.{name}")
+
     def transformer(self, src: str, dst: str, num_encoder_layers: int, num_decoder_layers: int):
         for i in range(num_encoder_layers):
             s, d = _src(src, f"encoder_layers_{i}"), _dst(dst, f"encoder.layers.{i}")
@@ -227,8 +280,12 @@ class JaxParams:
             self.torch_encoder_layer(f"{src}/dec_layers_{i}", f"{stack}.layers.{i}")
 
     def image_stem(self, cfg: GeneratorConfig):
-        """ResNet50 backbone + ``input_proj`` (Dense [2048, D] -> 1x1 conv)."""
-        self.resnet("backbone", "backbone.0.body", cfg.backbone_stage_sizes)
+        """The image backbone (``cfg.backbone``: the ViT for 'vit', else the
+        ResNet50) + ``input_proj`` (Dense [C, D] -> 1x1 conv)."""
+        if cfg.backbone == "vit":
+            self.vit("backbone", "backbone")
+        else:
+            self.resnet("backbone", "backbone.0.body", cfg.backbone_stage_sizes)
         self.put("input_proj.weight", self.take("input_proj/kernel").T[:, :, None, None])
         self.put("input_proj.bias", self.take("input_proj/bias"))
 
@@ -290,6 +347,46 @@ def discriminator_state_dict_from_jax(params: dict, cfg: GeneratorConfig) -> Dic
                       "dec_transformer_uncond", cfg.reconst_decoder_layers)
     for name in ("bbox_embed_uncond", "fc_out_cls_uncond"):
         c.dense(name, name)
+    return c.finish()
+
+
+def layoutganpp_generator_state_dict_from_jax(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``LayoutGanPPGenerator`` params -> port ``LayoutGanPPGenerator``
+    state dict for ``cfg`` (a ``LayoutGanPPConfig``)."""
+    c = JaxParams(params)
+    c.dense("fc_z", "fc_z")
+    c.bert_encoder("text_encoder/bert", "text_encoder", cfg.bert_num_encoder_layers,
+                   cfg.encoder_bert_config().encoder_width)
+    c.stylegan2_encoder("bg_encoder", "bg_encoder", cfg.background_size)
+    c.dense("fc_in", "fc_in")
+    for i in range(cfg.num_layers):
+        c.torch_encoder_layer(f"transformer_layers_{i}", f"transformer_layers.{i}")
+    c.dense("fc_out", "fc_out")
+    return c.finish()
+
+
+def layoutganpp_discriminator_state_dict_from_jax(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``LayoutGanPPDiscriminator`` params, initialised with
+    ``reconst=True`` (the reconstruction heads included) -> port
+    ``LayoutGanPPDiscriminator`` state dict for ``cfg``."""
+    c = JaxParams(params)
+    c.dense("fc_bbox", "fc_bbox")
+    c.bert_encoder("text_encoder/bert", "text_encoder", cfg.bert_num_encoder_layers,
+                   cfg.encoder_bert_config().encoder_width)
+    c.stylegan2_encoder("bg_encoder", "bg_encoder", cfg.background_size)
+    c.dense("enc_fc_in", "enc_fc_in")
+    c.put("enc_transformer.token", c.take("enc_transformer/token"))
+    for i in range(cfg.num_layers):
+        c.torch_encoder_layer(f"enc_transformer/layers_{i}", f"enc_transformer.core.layers.{i}")
+    c.dense("fc_out_disc", "fc_out_disc")
+    c.put("pos_token", c.take("pos_token"))
+    c.dense("dec_fc_in", "dec_fc_in")
+    for i in range(cfg.num_layers):
+        c.torch_encoder_layer(f"dec_layers_{i}", f"dec_layers.{i}")
+    c.dense("fc_out_bbox", "fc_out_bbox")
+    c.bert_lm_head("text_decoder", "text_decoder", cfg.bert_num_decoder_layers,
+                   cfg.decoder_bert_config().encoder_width)
+    c.stylegan2_decoder("bg_decoder", "bg_decoder", _decoder_resolutions(cfg.background_size))
     return c.finish()
 
 

@@ -20,12 +20,17 @@ Compared outputs (``docs/PARITY.md:116-125``): G at ``reconst=True``
 logits, ``bbox_rec`` and ``logit_cls`` of both decoders at the valid
 elements, ``loss_lm``, ``loss_text_len``, ``bg_rec``), and the stats of one
 deterministic train step (shared hoisted text pass, the same z on both
-sides).
+sides). Then the same G and D forwards with ``backbone='vit'`` (ViT-B/16
+at 256^2, a 16 x 16 DETR memory), and the LayoutGAN++ pair at
+``LayoutGanPPConfig()`` defaults (T=40, background 256; G's boxes, D's
+logit, ``bbox_pred`` of the valid elements, ``loss_lm`` and ``bg_rec`` at
+``reconst=True``).
 
 Run standalone (not collected by the test suite; about 4 minutes on an
-8-core Xeon, most of it XLA compiling JAX's train step):
+8-core Xeon for the LayoutDETR models with the train step, most of it
+XLA compiling JAX's train step):
 
-    python tests/_torch_full_dims_driver.py [--no-step]
+    python tests/_torch_full_dims_driver.py [--no-step] [--models detr,vit,layoutganpp]
 
 ``tests/test_torch_full_dims_driver.py`` runs ``compare`` at tiny dims.
 The card's half is transitive: ``chip_smoke.py`` holds the port on the
@@ -35,6 +40,7 @@ card against the port on the CPU at full width.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import os
 import platform
@@ -52,16 +58,26 @@ from layoutdetr_tpu.models.discriminator import Discriminator as JaxDiscriminato
 from layoutdetr_tpu.models.generator import Generator as JaxGenerator
 from layoutdetr_tpu.models.generator import GeneratorConfig as JaxConfig
 from layoutdetr_tpu.models.generator import make_text_feature_fn as jax_text_feature_fn
+from layoutdetr_tpu.models.layoutganpp import LayoutGanPPConfig as JaxLGPPConfig
+from layoutdetr_tpu.models.layoutganpp import LayoutGanPPDiscriminator as JaxLGPPD
+from layoutdetr_tpu.models.layoutganpp import LayoutGanPPGenerator as JaxLGPPG
 from layoutdetr_tpu.training import optimizers as jax_opt
 from layoutdetr_tpu.training import train_step as jax_step
 from layoutdetr_tpu_torch.config import GeneratorConfig
 from layoutdetr_tpu_torch.models.discriminator import Discriminator
 from layoutdetr_tpu_torch.models.generator import Generator
+from layoutdetr_tpu_torch.models.layoutganpp import (
+    LayoutGanPPConfig,
+    LayoutGanPPDiscriminator,
+    LayoutGanPPGenerator,
+)
 from layoutdetr_tpu_torch.training.optimizers import build_optimizer
 from layoutdetr_tpu_torch.training.train_step import GANTrainState, make_train_step
 from layoutdetr_tpu_torch.utils.convert import (
     discriminator_state_dict_from_jax,
     generator_state_dict_from_jax,
+    layoutganpp_discriminator_state_dict_from_jax,
+    layoutganpp_generator_state_dict_from_jax,
 )
 
 from test_torch_common import random_params
@@ -79,7 +95,9 @@ N_VALID = 6  # elements 6..8 are padding
 G_NAMES = ("bbox_fake", "loss_z", "logit_cls", "loss_lm", "loss_text_len")
 D_NAMES = ("logit", "logit_uncond", "bbox_rec", "logit_cls", "loss_lm", "loss_text_len",
            "bg_rec", "bbox_rec_uncond", "logit_cls_uncond")
-PER_ELEMENT = ("logit_cls", "bbox_rec", "bbox_rec_uncond", "logit_cls_uncond")
+LGPP_D_NAMES = ("logit", "bbox_pred", "loss_lm", "bg_rec")
+PER_ELEMENT = ("logit_cls", "bbox_rec", "bbox_rec_uncond", "logit_cls_uncond", "bbox_pred")
+MODELS = ("detr", "vit", "layoutganpp")
 
 
 def make_inputs(cfg: JaxConfig, seed: int = 3) -> dict:
@@ -227,6 +245,53 @@ def compare(dims: dict, seed: int = 0, step: bool = True, log=print) -> list:
     return rows
 
 
+def compare_layoutganpp(dims: dict, seed: int = 0, log=print) -> list:
+    """The LayoutGAN++ G and D (``reconst=True``) vs JAX on one B=1 input at
+    ``dims`` (``LayoutGanPPConfig`` fields), random JAX params from
+    ``seed``; rows as ``compare``'s, named ``layoutganpp G ...``/``D ...``."""
+    jcfg = JaxLGPPConfig(**dims)
+    cfg = LayoutGanPPConfig.from_dict(dataclasses.asdict(jcfg))
+    x = make_inputs(jcfg)
+    kw = _model_kwargs(x)
+    t0 = time.perf_counter()
+    jg, jd = JaxLGPPG(jcfg), JaxLGPPD(jcfg)
+    pg = random_params(jg, z=x["z"], bbox_real=x["bbox"], seed=seed, **kw)
+    pd = random_params(jd, bbox=x["bbox"], reconst=True, seed=seed + 1, **kw)
+    want_g = np.asarray(jax.jit(lambda p: jg.apply({"params": p}, z=x["z"], bbox_real=x["bbox"],
+                                                   **kw))(pg))
+    want_d = jax.tree.map(np.asarray, jax.jit(lambda p: jd.apply(
+        {"params": p}, bbox=x["bbox"], reconst=True, **kw))(pd))
+    log(f"[{time.perf_counter() - t0:7.1f} s] JAX LayoutGAN++ G and D forwards")
+    G, D = LayoutGanPPGenerator(cfg), LayoutGanPPDiscriminator(cfg)
+    G.load_state_dict(layoutganpp_generator_state_dict_from_jax(pg, cfg), strict=True)
+    D.load_state_dict(layoutganpp_discriminator_state_dict_from_jax(pd, cfg), strict=True)
+    tkw = _torch(kw)
+    with torch.no_grad():
+        got_g = G.eval()(z=torch.from_numpy(x["z"]), bbox_real=None, **tkw)
+        got_d = D.eval()(bbox=torch.from_numpy(x["bbox"]), reconst=True, **tkw)
+    log(f"[{time.perf_counter() - t0:7.1f} s] port LayoutGAN++ G and D forwards")
+    valid = ~x["padding_mask"]
+    return (_outputs("layoutganpp G", ("bbox_fake",), (got_g,), (want_g,), valid)
+            + _outputs("layoutganpp D", LGPP_D_NAMES, got_d, want_d, valid))
+
+
+def compare_models(models, dims: dict, lgpp_dims: dict, seed: int = 0, step: bool = True,
+                   log=print) -> list:
+    """``compare`` for each of ``models``: 'detr' (the LayoutDETR G and D
+    at ``dims``, with the train step unless ``step`` is off), 'vit' (their
+    forwards with ``backbone='vit'``, rows prefixed ``vit``) and
+    'layoutganpp' (``compare_layoutganpp`` at ``lgpp_dims``)."""
+    rows = []
+    if "detr" in models:
+        rows += compare(dims, seed, step=step, log=log)
+    if "vit" in models:
+        rows += [dict(r, name=f"vit {r['name']}")
+                 for r in compare(dict(dims, backbone="vit"), seed, step=False, log=log)]
+    if "layoutganpp" in models:
+        rows += compare_layoutganpp(lgpp_dims, seed, log=log)
+    return rows
+
+
 def table(rows: list) -> str:
     lines = ["| output | max-abs | scale (max \\|JAX\\|) | bar |", "|---|---|---|---|"]
     lines += [f"| {r['name']} | {r['max_abs']:.2e} | {r['scale']:.3g} | {r['bar']:.0e}"
@@ -238,13 +303,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-step", action="store_true", help="compare the forwards only")
+    ap.add_argument("--models", default=",".join(MODELS),
+                    help=f"comma-separated subset of {','.join(MODELS)}")
     args = ap.parse_args(argv)
     torch.set_num_threads(os.cpu_count() or 1)
     print(f"host: {platform.processor() or platform.machine()}, {os.cpu_count()} CPUs; "
           f"torch {torch.__version__}, jax {jax.__version__}", flush=True)
     t0 = time.perf_counter()
-    rows = compare(FULL, args.seed, step=not args.no_step,
-                   log=lambda s: print(s, flush=True))
+    models = args.models.split(",")
+    if not set(models) <= set(MODELS):
+        ap.error(f"--models takes {','.join(MODELS)}")
+    rows = compare_models(models, FULL, {}, args.seed, step=not args.no_step,
+                          log=lambda s: print(s, flush=True))
     print(table(rows))
     bad = [r["name"] for r in rows if not r["ok"]]
     print(f"{len(rows) - len(bad)} of {len(rows)} outputs within their bars; "

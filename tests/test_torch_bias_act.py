@@ -311,6 +311,49 @@ def test_bias_act_takes_any_float_bias_on_card():
     _any_bias_matches_fp32("cuda")
 
 
+def _any_x_layout_matches_contiguous(device):
+    """``bias_act`` on a non-contiguous x (channels last, as a convolution
+    of a permuted NHWC image returns it; a transposed [C, N] matrix) gives
+    what the same values in a contiguous x give, and the same gradients:
+    the same bits on the card, which copies x to a contiguous tensor; on
+    the CPU db sums the positions in the layout's order, to 1e-6 of
+    max |db|."""
+    g = torch.Generator(device=device).manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        for x0 in (torch.randn(2, 8, 5, 6, device=device, generator=g)
+                   .to(memory_format=torch.channels_last),
+                   torch.randn(8, 3, device=device, generator=g).t()):
+            x0 = x0.to(dtype)
+            assert not x0.is_contiguous()
+            b0 = torch.randn(x0.shape[1], device=device, generator=g)
+            dy = torch.randn(x0.shape, device=device, generator=g).to(dtype)
+            got, want = [], []
+            for x_in, out in ((x0, got), (x0.contiguous(), want)):
+                x = x_in.detach().clone(memory_format=torch.preserve_format).requires_grad_(True)
+                b = b0.clone().requires_grad_(True)
+                y = port.bias_act(x, b, act="lrelu", gain=1.3, clamp=0.9)
+                y.backward(dy)
+                out += [y, x.grad, b.grad]
+            for a, w in zip(got[:2], want[:2]):
+                assert torch.equal(a.contiguous(), w), dtype
+            db_err = float((got[2] - want[2]).abs().max())
+            assert db_err <= (0.0 if device == "cuda" else 1e-6 * float(want[2].abs().max()))
+
+
+def test_bias_act_takes_any_x_layout():
+    _any_x_layout_matches_contiguous("cpu")
+
+
+@pytest.mark.cuda
+def test_bias_act_takes_any_x_layout_on_card():
+    """On the card ``bias_act`` copies a non-contiguous x to a contiguous
+    one before the kernels (LayoutGAN++'s encoder gives its first layer a
+    channels-last conv output)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _any_x_layout_matches_contiguous("cuda")
+
+
 def _card_case(shape, dtype, seed=0, dim=1):
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(shape, device="cuda", generator=g).to(dtype)

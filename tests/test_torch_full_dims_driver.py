@@ -2,19 +2,27 @@
 standalone driver (``tests/_torch_full_dims_driver.py``) cannot rot: the
 same inputs, random JAX params crossed over, G and D at ``reconst=True``
 and one deterministic train step, every output within the driver's bars
-(and here within 1e-5, the tiny-dims bar of the other port tests)."""
+(and here within 1e-5, the tiny-dims bar of the other port tests); then
+the ViT G and D (the ViT patched to width 16, depth 2 on both sides, as in
+test_torch_vit.py) and the LayoutGAN++ pair."""
+
+import pytest
 
 import _torch_full_dims_driver as driver
 
 from test_torch_common import TINY_KW
 from test_torch_common import one_torch_thread  # noqa: F401 (module-scoped autouse fixture)
+from test_torch_vit import narrow_vit  # noqa: F401 (the ViT patched narrow on both sides)
+
+DIMS = {**{k: v for k, v in TINY_KW.items() if k != "backbone_stage_sizes"},
+        "backbone_stage_sizes": (1, 1, 1, 1), "reconst_decoder_layers": 1,
+        "uncond_encoder_layers": 1}
+LGPP_DIMS = {**TINY_KW, "max_text_length": 40, "bert_max_position_embeddings": 64, "f_dim": 16,
+             "num_heads": 2, "num_layers": 2}
 
 
 def test_compare_at_tiny_dims():
-    dims = {k: v for k, v in TINY_KW.items() if k != "backbone_stage_sizes"}
-    dims.update(backbone_stage_sizes=(1, 1, 1, 1), reconst_decoder_layers=1,
-                uncond_encoder_layers=1)
-    rows = driver.compare(dims, log=lambda s: None)
+    rows = driver.compare(DIMS, log=lambda s: None)
     names = [r["name"] for r in rows]
     assert names[:5] == ["G bbox_fake", "G loss_z", "G logit_cls[valid]", "G loss_lm",
                          "G loss_text_len"]
@@ -24,3 +32,18 @@ def test_compare_at_tiny_dims():
     worst = {r["name"]: r["max_abs"] for r in rows if r["max_abs"] > 1e-5 * max(1.0, r["scale"])}
     assert not worst, worst
     assert "| D bg_rec |" in driver.table(rows)
+
+
+@pytest.mark.parametrize("model,first", [
+    ("vit", ["vit G bbox_fake", "vit G loss_z"]),
+    ("layoutganpp", ["layoutganpp G bbox_fake", "layoutganpp D logit",
+                     "layoutganpp D bbox_pred[valid]", "layoutganpp D loss_lm",
+                     "layoutganpp D bg_rec"]),
+])
+def test_new_models_compare_at_tiny_dims(narrow_vit, model, first):
+    rows = driver.compare_models([model], DIMS, LGPP_DIMS, log=lambda s: None)
+    names = [r["name"] for r in rows]
+    assert names[:len(first)] == first and not any(n.startswith("vit step") for n in names)
+    assert all(r["ok"] for r in rows), driver.table(rows)
+    worst = {r["name"]: r["max_abs"] for r in rows if r["max_abs"] > 1e-5 * max(1.0, r["scale"])}
+    assert not worst, worst

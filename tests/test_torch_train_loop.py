@@ -1,8 +1,10 @@
 """The training run on the CPU: the port's ``training_loop`` at tiny dims
 (3 steps with ADA, R1 and path-length steps, a snapshot each tick),
-resume, abort, and the ``train`` CLI's options against the JAX package's
-click command."""
+resume, abort, the ``train`` CLI's options against the JAX package's
+click command, and ``train --backbone vit`` with ``generate --ckpt`` on
+its snapshot."""
 
+import functools
 import json
 import os
 
@@ -10,9 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from layoutdetr_tpu_torch import generate as port_generate
 from layoutdetr_tpu_torch import train as port_train
 from layoutdetr_tpu_torch.config import GeneratorConfig
 from layoutdetr_tpu_torch.data.synthetic import make_synthetic_zip
+from layoutdetr_tpu_torch.models import generator as port_generator
+from layoutdetr_tpu_torch.models import vit
 from layoutdetr_tpu_torch.training import train_loop
 from layoutdetr_tpu_torch.training.loss import LossWeights
 from layoutdetr_tpu_torch.utils.checkpoint import load_snapshot, snapshot_of
@@ -154,7 +159,6 @@ def test_cli_options_match_the_jax_cli():
     (["--chips", "2"], "item 19"),
     (["--gpus", "4"], "item 19"),
     (["--model-parallel", "2"], "item 19"),
-    (["--backbone", "vit"], "item 19"),
     (["--load-patches"], "not ported"),
     (["--max-text-length", "0"], "positive integer"),
 ])
@@ -163,6 +167,42 @@ def test_cli_refuses_what_waits(argv, message, data, tmp_path, capsys):
         port_train.main(["--outdir", str(tmp_path), "--data", data, "--batch", "2", "--device", "cpu",
                          *argv])
     assert message in capsys.readouterr().err
+
+
+def test_cli_trains_the_vit_backbone_and_generate_reads_its_snapshot(data, tmp_path,
+                                                                      monkeypatch):
+    """``train --backbone vit`` takes a step on the CPU and writes a
+    snapshot whose .gcfg.json carries the backbone; ``generate --ckpt``
+    builds the ViT G_ema from it and serves a layout. The ViT is patched to
+    width 16, depth 2, 2 heads to keep the test fast (the CLI has no ViT
+    width option, as JAX's has none)."""
+    import PIL.Image
+
+    monkeypatch.setattr(port_generator, "VisionTransformer",
+                        functools.partial(vit.VisionTransformer, embed_dim=16, depth=2,
+                                          num_heads=2))
+    port_train.main(["--outdir", str(tmp_path / "runs"), "--data", data, "--batch", "2",
+                     "--device", "cpu", "--backbone", "vit", "--bert-f-dim", "32",
+                     "--bert-num-heads", "2", "--bert-num-encoder-layers", "2",
+                     "--bert-num-decoder-layers", "1", "--im-f-dim", "16", "--background-size",
+                     "32", "--max-text-length", "auto", "--metrics", "none", "--snap", "1",
+                     "--max-steps", "1"])
+    (run,) = os.listdir(tmp_path / "runs")
+    run_dir = tmp_path / "runs" / run
+    (snap,) = sorted(n for n in os.listdir(run_dir) if n.endswith(".pt"))
+    with open(run_dir / f"{snap}.gcfg.json") as f:
+        assert json.load(f)["backbone"] == "vit"
+    (stats,) = _jsonl(str(run_dir))
+    assert all(np.isfinite(v["mean"]) for v in stats.values() if isinstance(v, dict) and v["num"])
+
+    bg = str(tmp_path / "bg.png")
+    PIL.Image.fromarray(np.random.default_rng(0).integers(0, 255, (48, 40, 3), np.uint8)).save(bg)
+    (layout,) = port_generate.main(["--ckpt", str(run_dir / snap), "--bg", bg, "--strings",
+                                    "big sale|shop now", "--string-labels", "header|button",
+                                    "--device", "cpu", "--outfile", str(tmp_path / "out" / "x")])
+    assert int(layout.mask.sum()) == 2 and ((layout.raw > 0) & (layout.raw < 1)).all()
+    model = port_generate.load_generator(str(run_dir / snap), device="cpu")
+    assert model.cfg.backbone == "vit" and isinstance(model.backbone, vit.VisionTransformer)
 
 
 def test_cli_dry_run_resolves_auto_text_length(data, tmp_path, capsys):
