@@ -6,6 +6,7 @@ kernel on them against its plain version.
     python3 chip_smoke.py --bias-act-only
     python3 chip_smoke.py --attention-only
     python3 chip_smoke.py --bench-host-only
+    python3 chip_smoke.py --multi-card
 
 The second form runs phases 1-3 for bias_act alone, adds where a call's
 host time goes (two ways to read the current stream, the host us of a
@@ -19,7 +20,11 @@ time to return from the call and to the end of a synchronize after it, a
 12-step window of each in the order A, B, B, A, and one profiled step of
 each (device busy ms, kernel launches, and the count and host ms of
 ``aten::item``, ``cudaLaunchKernel`` and the other host calls that can
-hold a step); one JSON line and no ok line.
+hold a step); one JSON line and no ok line. The fifth needs several
+cards: ``python -m layoutdetr_tpu_torch.train --gpus N`` over every
+visible card (NCCL, one process a card) on phase 9's zip, data parallel
+and with ``--model-parallel 2``, each served from once; one JSON line
+and no ok line.
 
 Phases (any failure ends the run with a non-zero exit and no result):
 
@@ -159,6 +164,22 @@ Phases (any failure ends the run with a non-zero exit and no result):
    then runs plain attention); outputs and D's gradient with the kernels
    vs with plain attention and plain bias_act, the card vs the CPU (fp32,
    B=2), and each call's time.
+15. multi-GPU training (slice 7), at full width on the one card: two
+   ranks over gloo on cuda:0 (``parallel.distributed.spawn``; NCCL refuses
+   two ranks on one device): (a) data parallel 2 x 1 and (b) tensor
+   parallel 1 x 2 (BERT's q/k/v, FFN and the transformers' linear1/linear2
+   sharded), each one deterministic fp32 step at batch 16 (T=256, phase
+   8's batch and z, each rank its share) held to the one-process step at
+   phase 8's bars, with the replica check and 12 + 48 + 48 launches a
+   rank; (a) also 3 bf16 steps with dropout (per-rank step ms and peak
+   memory: two ranks sharing one card say nothing of scaling); (c)
+   ``training_loop`` over the 2 ranks on phase 9's zip (bf16, ADA, path
+   length at steps 0 and 4, R1 at 0, a snapshot each tick with the
+   replica check), 6 steps and a 2-step resume from its snapshot, one p
+   and one pl_mean on both ranks, each rank's launches counted, then
+   ``generate --ckpt`` from the snapshot; (d) one fp32 step through an
+   NCCL group of one rank, equal bit for bit to the step without a group
+   (cuDNN deterministic for both).
 
 The last three lines of standard output are the kernels JSON, the card
 (nvidia-smi name, power limit) and ``{"ok": true, "device": {...}}``.
@@ -314,6 +335,15 @@ def run_attention_shapes(batch: int, t: int) -> list:
     return [(batch * 9, t), (max(batch // 2, 1) * 9, t), (9, t), (4 * 9, t)]
 
 
+def multi_gpu_attention_shapes(batch: int) -> list:
+    """(rows, T[, heads, head_offset]) of phase 15's attention calls beside
+    the training run's: a data-parallel rank's step at T=256 (half the
+    batch), a tensor-parallel rank's (the batch, its 2 heads with the
+    dropout key's offset: heads 0-1 and 2-3 of 4) and the NCCL step (2
+    samples at T=64)."""
+    return [((batch // 2) * 9, 256), (batch * 9, 256, 2, 0), (batch * 9, 256, 2, 2), (2 * 9, 64)]
+
+
 def eval_attention_shapes(batch: int, run_t: int) -> list:
     """(rows, T) of the evaluation's attention calls (phase 10): G_ema at
     ``batch`` layouts and at the last partial batch's, (a) at the training
@@ -327,18 +357,20 @@ def eval_attention_shapes(batch: int, run_t: int) -> list:
 
 
 def attention_phase(torch, attention, seed: int, shapes: list) -> list:
-    """Kernel vs plain at each (rows, T) of ``shapes``, [rows, 4, T, 192],
-    fp32 and bf16, without and with dropout; one record per case."""
+    """Kernel vs plain at each (rows, T) of ``shapes``, [rows, 4, T, 192]
+    (or (rows, T, heads, head_offset): a tensor-parallel rank's heads of
+    4), fp32 and bf16, without and with dropout; one record per case."""
     import torch.nn.functional as F
 
-    h, d = 4, 192
+    d = 192
     scale = d ** -0.5
     cases = []
     for rate in (0.0, DROPOUT):
         for dtype_name in ("float32", "bfloat16"):
             dtype = getattr(torch, dtype_name)
             esize = torch.finfo(dtype).bits // 8
-            for b, t in shapes:
+            for b, t, h, offset in ((*s, 4, 0)[:4] for s in shapes):
+                heads = dict(head_offset=offset, total_heads=4)
                 g = torch.Generator(device="cuda").manual_seed(seed + t + b)
                 # [B, T, H, D] projections viewed as [B, H, T, D], as BERT gives them
                 q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=g).to(dtype)
@@ -348,9 +380,10 @@ def attention_phase(torch, attention, seed: int, shapes: list) -> list:
                 bias = torch.where(torch.arange(t, device="cuda")[None] < lens[:, None], 0.0, -10000.0)
                 drop = dict(dropout_rate=rate, seed=seed + 7 if rate else None)
 
-                out = attention.fused_attention(q, k, v, bias, scale=scale, **drop)
+                out = attention.fused_attention(q, k, v, bias, scale=scale, **drop, **heads)
                 torch.cuda.synchronize()
-                mask = attention.keep_mask(seed + 7, b, h, t, rate, device="cuda") if rate else None
+                mask = (attention.keep_mask(seed + 7, b, h, t, rate, device="cuda", **heads)
+                        if rate else None)
                 # the plain version in fp32 on the same (bf16-valued) inputs and
                 # the same keep mask: the bf16 kernel rounds p to bf16 before
                 # p.v and rounds its output to bf16; this reference keeps both
@@ -371,10 +404,11 @@ def attention_phase(torch, attention, seed: int, shapes: list) -> list:
                                          f"{1 - rate} +- {kept_tol}")
 
                 ms = cuda_ms(torch, lambda: attention.fused_attention(q, k, v, bias, scale=scale,
-                                                                      **drop), 20)
+                                                                      **drop, **heads), 20)
 
                 def plain():
-                    m = attention.keep_mask(seed + 7, b, h, t, rate, device="cuda") if rate else None
+                    m = (attention.keep_mask(seed + 7, b, h, t, rate, device="cuda", **heads)
+                         if rate else None)
                     return attention.attention_ref(q, k, v, bias, scale, rate, m)
 
                 plain_ms = cuda_ms(torch, plain, 5)
@@ -384,7 +418,8 @@ def attention_phase(torch, attention, seed: int, shapes: list) -> list:
                 flops = 4.0 * b * h * t * t * d
                 nbytes = 4.0 * b * h * t * d * esize + b * t * 4
                 bound_ms, bound_by = bound(flops, nbytes, dtype_name)
-                rec = dict(dtype=dtype_name, shape=[b, h, t, d], dropout_rate=rate, max_abs_err=err,
+                rec = dict(dtype=dtype_name, shape=[b, h, t, d], head_offset=offset,
+                           dropout_rate=rate, max_abs_err=err,
                            tol=tol, kept_fraction=kept, kept_tol=kept_tol, ms=ms, plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                            share_of_bound=bound_ms / ms, vs_library=ms / library_ms,
@@ -543,12 +578,12 @@ def round_trip_phase(torch, bias_act_mod, calls: list, seed: int) -> list:
     """A labelled extra: what the train step pays for one bias_act, the
     autograd round trip (``bias_act`` forward, then the gradients of x and
     b through ``_BiasAct``) against the same function in eager ops with
-    autograd, and against ``x + b`` alone, at [16, 512] linear and at the
-    largest lrelu call; b in x's dtype, as the models pass it."""
+    autograd, and against ``x + b`` alone, at [batch, 512] linear and at
+    the largest lrelu call of ``calls`` (one batch's); b in x's dtype, as the models pass it."""
     import torch.nn.functional as F
 
     lrelu = max((c for c in calls if c[2] == "lrelu"), key=lambda c: math.prod(c[0]))
-    fc = next(c for c in calls if c[0] == (16, 512) and c[2] == "linear")
+    fc = next(c for c in calls if len(c[0]) == 2 and c[0][1] == 512 and c[2] == "linear")
     out = []
     for shape, dim, act, alpha, gain, clamp in (fc, lrelu):
         for dtype_name in ("float32", "bfloat16"):
@@ -1222,7 +1257,7 @@ def training_run_phase(torch, np, args, card, attention, bias_act_mod, tmp: str,
 
     common = ["--data", zip_path, "--batch", str(args.batch), "--bf16", "--max-text-length",
               "auto", "--aug", "ada", "--gamma", "1", "--pl-weight", "2",
-              "--seed", str(args.seed), "--snap", "1"]
+              "--seed", str(args.seed), "--snap", "1", "--gpus", "1"]  # one process on any host
     out = os.path.join(tmp, "runs")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1905,8 +1940,8 @@ def vit_training_run(torch, args, card, attention, bias_act_mod, tmp: str, zip_p
     state = train_cli.main(["--outdir", out, "--data", zip_path, "--batch", str(args.batch),
                             "--bf16", "--backbone", "vit", "--max-text-length", "auto", "--gamma",
                             "1", "--pl-weight", "2", "--seed", str(args.seed), "--snap", "1",
-                            "--metrics", "none", "--device-feed", "on", "--max-steps",
-                            str(VIT_RUN_STEPS)])
+                            "--metrics", "none", "--device-feed", "on", "--gpus", "1",
+                            "--max-steps", str(VIT_RUN_STEPS)])
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2263,6 +2298,305 @@ def layoutganpp_phase(torch, np, args, card, attention, bias_act_mod, enc_calls:
 # main
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# 15. multi-GPU training
+# ---------------------------------------------------------------------------
+
+MG_RANKS = 2
+MG_RUN_STEPS, MG_RESUME_STEPS = 6, 2  # (c): path length at 0 and 4, R1 at 0, ADA at 4
+
+
+def loop_launches(steps: int, g_regs: int, d_regs: int, previews: int) -> dict:
+    """A rank's launches in ``training_loop``: 12 attention with dropout a
+    main step; 12 deterministic a reg step, a summary forward (G, D) and a
+    preview (rank 0's, one a tick); 48 + 48 bias_act a main step and 48
+    forward in D's summary."""
+    return dict(fused_attention=12 * (g_regs + d_regs + 2 + previews),
+                fused_attention_dropout=12 * steps, bias_act=48 * steps + 48,
+                bias_act_backward=48 * steps)
+
+
+def multi_gpu_rank(spec_path: str, out: str) -> None:
+    """One rank of phase 15, inside its grid (``parallel.distributed.spawn``:
+    gloo, both ranks on one card). Writes ``<out>/rank<r>.json``."""
+    import numpy as np
+    import torch
+
+    from layoutdetr_tpu_torch.ops import attention
+    from layoutdetr_tpu_torch.ops import bias_act as bias_act_mod
+    from layoutdetr_tpu_torch.parallel import distributed
+    from layoutdetr_tpu_torch.parallel import tensor_parallel as tp
+    from layoutdetr_tpu_torch.training import train_loop
+    from layoutdetr_tpu_torch.training.loss import LossWeights
+    from layoutdetr_tpu_torch.utils.misc import check_replica_consistency
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = torch.load(spec_path, weights_only=False)
+    g = distributed.grid()
+    dev, cfg, batch_size, seed = g.device, spec["cfg"], spec["batch"], spec["seed"]
+    vcfg = dataclasses.replace(cfg, max_text_length=256, text_len_table=256)
+    states = torch.load(spec["states"], map_location=dev, weights_only=True)
+    rec = dict(rank=g.rank)
+
+    def check_launches(launches, want, what):
+        """On the card each kernel launched as often as expected; on a CPU
+        rehearsal the plain versions ran and no count moved."""
+        if dev.type != "cuda":
+            want = dict.fromkeys(want, 0)
+        if launches != want:
+            raise AssertionError(f"{what} rank {g.rank}: launches {launches}, expected {want}")
+
+    def local(x):  # this data rank's rows of the global batch
+        share = batch_size // g.dp_size
+        return x[g.dp_rank * share:(g.dp_rank + 1) * share]
+
+    def sharded_state(dtype):
+        state = new_train_state(torch, vcfg, dtype, states, dev)
+        for m in (state.G, state.D, state.G_ema):
+            distributed.broadcast_module_(m)
+            tp.shard_module_(m, g.tp_rank, g.tp_size)
+        return state
+
+    def compare_step(what):
+        """Phase 8's deterministic fp32 step over the grid, held to the
+        one-process step (rank 0 compares; every rank checks its replicas)."""
+        state = sharded_state(torch.float32)
+        batch = {k: local(v) for k, v in train_batch(torch, np, vcfg, batch_size, seed, dev).items()}
+        zg = np.random.default_rng(seed + 11).normal(size=(2, batch_size, 9, vcfg.z_dim))
+        z = tuple(local(torch.from_numpy(x.astype(np.float32)).to(dev)) for x in zg)
+        zero_counters(attention, bias_act_mod)
+        stats = make_step(vcfg, batch_size, deterministic=True)(state, batch, torch.Generator(), z=z)
+        stats = {k: float(v) for k, v in stats.items()}
+        launches = counters(attention, bias_act_mod)
+        check_launches(launches, dict(fused_attention=12, fused_attention_dropout=0, bias_act=48,
+                                      bias_act_backward=48), what)
+        check_replica_consistency({"G": state.G, "D": state.D, "G_ema": state.G_ema})
+        full = {m: tp.gather_state_dict(getattr(state, m).state_dict(), g.tp_rank, g.tp_size,
+                                        g.tp_group) for m in ("G", "D")}
+        summed = distributed.all_reduce_host([stats[k] for k in sorted(stats)])
+        out = dict(launches=launches)
+        if g.is_chief:  # the ranks' mean stats and the full parameters
+            got = dict(stats={k: v / g.world for k, v in zip(sorted(stats), summed)},
+                       **{m: {k: v.detach().cpu() for k, v in sd.items()} for m, sd in full.items()})
+            out.update(compare_steps(torch, got, torch.load(spec["reference"], weights_only=True),
+                                     what))
+            del got
+        del state, full
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return out
+
+    # (a) data parallel 2 x 1
+    rec["dp_fp32"] = compare_step("DP 2x1 vs one process")
+    state = sharded_state(torch.bfloat16)
+    batch = {k: local(v) for k, v in train_batch(torch, np, vcfg, batch_size, seed, dev).items()}
+    step = make_step(vcfg, batch_size, deterministic=False)
+    gen = torch.Generator().manual_seed(distributed.rank_seed(seed, g.dp_rank))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    zero_counters(attention, bias_act_mod)
+    times, seen = [], []
+    for i in range(3):  # the first warms up
+        t0 = time.perf_counter()
+        seen.append(step(state, batch, gen))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = counters(attention, bias_act_mod)
+    check_launches(launches, dict(fused_attention=0, fused_attention_dropout=36, bias_act=144,
+                                  bias_act_backward=144), "DP bf16")
+    bad = [k for s in seen for k, v in s.items() if not math.isfinite(float(v))]
+    if bad:
+        raise AssertionError(f"DP bf16 rank {g.rank}: non-finite {bad}")
+    rec["dp_bf16"] = dict(step_ms=times[1:], launches=launches,
+                          peak_memory_gb=(torch.cuda.max_memory_allocated() / 1e9
+                                          if dev.type == "cuda" else None))
+    del state, batch, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) tensor parallel 1 x 2 over the same ranks
+    distributed.make_grid(MG_RANKS)
+    g = distributed.grid()
+    rec["tp_fp32"] = compare_step("TP 1x2 vs one process")
+
+    # (c) training_loop, data parallel, then a resume
+    distributed.make_grid(1)
+    g = distributed.grid()
+    kw = dict(data=spec["zip"], gcfg=spec["run_gcfg"], batch_size=batch_size, dtype=torch.bfloat16,
+              loss_weights=LossWeights(pl_weight=2.0, r1_gamma=1.0), g_reg_interval=G_REG,
+              d_reg_interval=D_REG, aug="ada", kimg_per_tick=1, network_snapshot_ticks=1,
+              image_snapshot_ticks=1, random_seed=seed, device=dev)
+    runs = {}
+    for name, steps, extra in (("run", MG_RUN_STEPS, dict(device_feed="on")),
+                               ("resume", MG_RESUME_STEPS,
+                                dict(device_feed="off", num_workers=0,
+                                     resume=os.path.join(spec["run_dir"],
+                                                         "network-snapshot-000000.pt")))):
+        run_dir = spec["run_dir"] if name == "run" else spec["resume_dir"]
+        zero_counters(attention, bias_act_mod)
+        seen = []
+        real = train_loop.AdaController.update
+
+        def update(self, *a, real=real, seen=seen):
+            seen.append(real(self, *a))
+            return seen[-1]
+
+        train_loop.AdaController.update = update
+        t0 = time.perf_counter()
+        try:
+            state = train_loop.training_loop(run_dir=run_dir, max_steps=steps, **kw, **extra)
+        finally:
+            train_loop.AdaController.update = real
+        wall_s = time.perf_counter() - t0
+        launches = counters(attention, bias_act_mod)
+        check_launches(launches, loop_launches(steps, len(range(0, steps, G_REG)),
+                                               len(range(0, steps, D_REG)), 2 if g.is_chief else 0),
+                       f"training_loop {name}")
+        runs[name] = dict(step=state.step, ada_p=seen, pl_mean=float(state.pl_mean),
+                          launches=launches, wall_s=wall_s)
+        del state
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    rec["loop"] = runs
+    with open(os.path.join(out, f"rank{g.rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def multi_gpu_phase(torch, np, args, card, attention, bias_act_mod, tmp: str, zip_path: str,
+                    t: int, states_path: str, device: str = "cuda", cfg=None) -> dict:
+    """Phase 15, multi-GPU training on the one card: (a) data parallel 2 x 1
+    and (b) tensor parallel 1 x 2, two ranks over gloo on ``device``, each
+    a deterministic fp32 step at the global batch held to the one-process
+    step at phase 8's bars, (a) also 3 bf16 steps with dropout (per-rank
+    step ms, peak memory, 12 + 48 + 48 launches a step); (c)
+    ``training_loop`` over the 2 ranks on phase 9's zip (bf16, ADA, both
+    reg steps, a snapshot each tick with the replica check), a resume from
+    its snapshot and ``generate`` from it; (d) one step through an NCCL
+    group of one rank, equal to the no-group step bit for bit. Two ranks
+    sharing one card say nothing of scaling."""
+    import zipfile
+
+    from layoutdetr_tpu_torch import generate
+    from layoutdetr_tpu_torch.config import GeneratorConfig
+    from layoutdetr_tpu_torch.data.dataset import LayoutDataset
+    from layoutdetr_tpu_torch.parallel import distributed
+
+    cfg = cfg or GeneratorConfig()
+    on_card = device == "cuda"
+    states = torch.load(states_path, weights_only=True)
+    ref = one_step(torch, np, cfg, states, args.batch, 256, args.seed, device)
+    ref_path = os.path.join(tmp, "reference.pt")
+    torch.save(ref, ref_path)
+    if on_card:
+        torch.cuda.empty_cache()
+    # the config train.main gives phase 9's zip at --max-text-length auto
+    gcfg = dataclasses.replace(
+        cfg, num_bbox_labels=LayoutDataset(zip_path, cache=False).num_bbox_labels,
+        max_text_length=t, text_len_table=256)
+    run_dir, resume_dir = os.path.join(tmp, "mg_run"), os.path.join(tmp, "mg_resumed")
+    for d in (run_dir, resume_dir):
+        os.makedirs(d)
+    spec = os.path.join(tmp, "mg_spec.pt")
+    torch.save(dict(cfg=cfg, batch=args.batch, seed=args.seed, states=states_path,
+                    reference=ref_path, zip=zip_path, run_gcfg=gcfg, run_dir=run_dir,
+                    resume_dir=resume_dir), spec)
+    t0 = time.perf_counter()
+    distributed.spawn(multi_gpu_rank, MG_RANKS, (spec, tmp),
+                      devices=["cuda:0" if on_card else device] * MG_RANKS, backend="gloo",
+                      timeout_s=900)
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(MG_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    # (c) one step, one pl_mean and one ADA p (moved at batch 4 of the run)
+    # on every rank; rank 0's files
+    for name, steps in (("run", MG_RUN_STEPS), ("resume", MG_RUN_STEPS + MG_RESUME_STEPS)):
+        got = [(r["loop"][name]["step"], r["loop"][name]["ada_p"], r["loop"][name]["pl_mean"])
+               for r in ranks]
+        if any(x != got[0] for x in got) or got[0][0] != steps or (name == "run" and not got[0][1]):
+            raise AssertionError(f"training_loop {name}: (step, ADA p, pl_mean) by rank {got}")
+    for d, steps in ((run_dir, MG_RUN_STEPS), (resume_dir, MG_RESUME_STEPS)):
+        # rank 0's stats.jsonl alone: tick 0 and the last; the collector
+        # sums both ranks, two reports a main step; every value finite
+        records = read_jsonl(os.path.join(d, "stats.jsonl"))
+        nums = [sum(r[k]["num"] for r in records) for k in ("Loss/G/loss_Ggen", "Loss/D/loss_Dreal")]
+        bad = [k for r in records for k, v in r.items() if isinstance(v, dict) and v["num"]
+               and not (math.isfinite(v["mean"]) and math.isfinite(v["std"]))]
+        snaps = sorted(n for n in os.listdir(d) if n.startswith("network-snapshot"))
+        if (len(records) != 2 or nums != [MG_RANKS * steps] * 2 or bad
+                or snaps != ["network-snapshot-000000.pt", "network-snapshot-000000.pt.gcfg.json"]):
+            raise AssertionError(f"multi-GPU training_loop in {d}: {len(records)} stats lines, "
+                                 f"main-step reports {nums}, non-finite {bad}, snapshots {snaps}")
+    snap = os.path.join(run_dir, "network-snapshot-000000.pt")
+    bg = os.path.join(tmp, "mg_bg.png")
+    with zipfile.ZipFile(zip_path) as zf, open(bg, "wb") as f:
+        f.write(zf.read("00000000_background_orig.png"))
+    zero_counters(attention, bias_act_mod)
+    (layout,) = generate.main(["--ckpt", snap, "--bg", bg, "--strings", "summer sale|shop now",
+                               "--string-labels", "header|button", "--device", device,
+                               "--outfile", os.path.join(tmp, "mg_served", "banner")])
+    served = counters(attention, bias_act_mod)
+    if not np.isfinite(layout.bbox).all() or not ((layout.raw > 0) & (layout.raw < 1)).all():
+        raise AssertionError(f"serving from the multi-GPU snapshot: {layout.raw}")
+
+    # (d) one rank through NCCL against no group, bit for bit
+    nccl = None
+    if on_card:
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        zero_counters(attention, bias_act_mod)
+        try:
+            alone = one_step(torch, np, cfg, states, 2, 64, args.seed + 1, device)
+            distributed.init(0, 1, 1, "cuda:0",
+                             init_method=f"tcp://127.0.0.1:{distributed.free_port()}")
+            try:
+                grouped = one_step(torch, np, cfg, states, 2, 64, args.seed + 1, device)
+            finally:
+                distributed.shutdown()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        same_bits(torch, grouped, alone, "NCCL group of one rank vs no group")
+        nccl = dict(bit_exact=True, launches=counters(attention, bias_act_mod))
+        del alone, grouped
+        torch.cuda.empty_cache()
+
+    by_kernel = {}
+    for r in ranks:
+        parts = [r["dp_fp32"]["launches"], r["dp_bf16"]["launches"], r["tp_fp32"]["launches"],
+                 r["loop"]["run"]["launches"], r["loop"]["resume"]["launches"]]
+        for launches in parts:
+            for k, n in launches.items():
+                by_kernel[k] = by_kernel.get(k, 0) + n
+    for launches in ([served] + ([nccl["launches"]] if nccl else [])):
+        for k, n in launches.items():
+            by_kernel[k] += n
+    rec = dict(ranks=ranks, wall_s=wall_s, served_launches=served, nccl_one_rank=nccl,
+               launches=by_kernel)
+    for r in ranks:
+        dp, tp_, bf = r.get("dp_fp32", {}), r.get("tp_fp32", {}), r["dp_bf16"]
+        log(f"multi-GPU rank {r['rank']} (2 ranks over gloo on one card): bf16 DP step "
+            f"{', '.join(f'{x:.1f}' for x in bf['step_ms'])} ms at batch {args.batch // MG_RANKS} a "
+            f"rank, peak memory {bf['peak_memory_gb'] or 0:.2f} GB; launches a rank {bf['launches']} "
+            f"in 3 steps; training_loop {r['loop']['run']['wall_s']:.1f} s + resume "
+            f"{r['loop']['resume']['wall_s']:.1f} s  [{card}]")
+    for what in ("dp_fp32", "tp_fp32"):
+        c = ranks[0][what]
+        log(f"multi-GPU {what} vs one process (fp32, B={args.batch}, T=256): losses max rel "
+            f"{c['loss_max_rel']:.3e}; params_g max-abs {c['G']['max_abs']:.3e} "
+            f"({c['G']['share_off']:.2e} off), params_d max-abs {c['D']['max_abs']:.3e} "
+            f"({c['D']['share_off']:.2e} off)")
+    log(f"multi-GPU training_loop: {MG_RUN_STEPS} steps + resume {MG_RESUME_STEPS} on 2 ranks, "
+        f"ADA p {ranks[0]['loop']['run']['ada_p']} on both, replica check at every snapshot; "
+        f"served from its snapshot; NCCL one rank: {'bit for bit' if nccl else 'not run'}; "
+        f"launches {by_kernel}; wall {wall_s:.1f} s")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Run the port's main paths on one GPU.")
     ap.add_argument("--seed", type=int, default=0)
@@ -2276,6 +2610,9 @@ def main() -> int:
     ap.add_argument("--bench-host-only", action="store_true",
                     help="time the bench's train step beside phase 7's in one process, with "
                          "host and device time split, and print their JSON; prints no ok line")
+    ap.add_argument("--multi-card", action="store_true",
+                    help="train over every visible card (NCCL), data parallel and with "
+                         "--model-parallel 2, and print their JSON; prints no ok line")
     args = ap.parse_args()
 
     import torch
@@ -2292,6 +2629,8 @@ def main() -> int:
         return attention_only(torch, args)
     if args.bench_host_only:
         return bench_host_only(torch, np, args)
+    if args.multi_card:
+        return multi_card_only(torch, args)
 
     from layoutdetr_tpu_torch.config import GeneratorConfig
     from layoutdetr_tpu_torch.generate import generate_layouts
@@ -2331,7 +2670,8 @@ def main() -> int:
                                 + run_attention_shapes(args.batch, run_t)
                                 + eval_attention_shapes(args.batch, run_t)
                                 + http_attention_shapes()
-                                + layoutganpp_attention_shapes(args.batch)))
+                                + layoutganpp_attention_shapes(args.batch)
+                                + multi_gpu_attention_shapes(args.batch)))
     attn_cases = attention_phase(torch, attention, args.seed, shapes)
     torch.manual_seed(args.seed)
     enc_calls = encoder_calls(torch, LayoutGanPPConfig(), args.batch)
@@ -2342,10 +2682,20 @@ def main() -> int:
     with torch.device("cuda"):
         model = Generator(cfg).eval()
     calls, disc = bg_decoder_calls(torch, cfg, args.batch)
+    # the bg_decoder's other batches on the main paths: a data-parallel
+    # rank's share and the NCCL step's 2 samples (phase 15), the module
+    # summaries' 1 (phases 9, 13 and 15)
+    other_batches = sorted({args.batch // MG_RANKS, 2, 1} - {args.batch}, reverse=True)
+    other_calls = {b: bg_decoder_calls(torch, cfg, b, disc)[0] for b in other_batches}
     states = (model.state_dict(), {k: v.clone() for k, v in disc.state_dict().items()})
     del disc
     bias_cases = bias_act_phase(torch, bias_act_mod, calls, args.seed)
-    round_trip = round_trip_phase(torch, bias_act_mod, calls, args.seed)
+    other_bias_cases = bias_act_phase(torch, bias_act_mod,
+                                      [c for cs in other_calls.values() for c in cs], args.seed,
+                                      per="step at its batch")
+    round_trip = (round_trip_phase(torch, bias_act_mod, calls, args.seed)
+                  + round_trip_phase(torch, bias_act_mod, other_calls[args.batch // MG_RANKS],
+                                     args.seed))
     backward_kernels = kernels_per_backward(torch, bias_act_mod, calls)
 
     # 4. full-width model: kernel vs plain attention (fp32, bf16), bf16 vs
@@ -2448,6 +2798,8 @@ def main() -> int:
 
     # 8. step correctness
     correctness = step_correctness_phase(torch, np, cfg, states, args, attention, bias_act_mod)
+    states_path = os.path.join(workdir.name, "states.pt")  # phase 15's weights
+    torch.save([{k: v.cpu() for k, v in s.items()} for s in states], states_path)
     del states
     torch.cuda.empty_cache()
 
@@ -2469,16 +2821,21 @@ def main() -> int:
     # 13. the ViT backbone, slice 6's paths, on phase 9's zips
     vit = vit_phase(torch, np, args, card, attention, bias_act_mod, workdir.name, zip_path,
                     val_path, run_t)
-    workdir.cleanup()
 
     # 14. LayoutGAN++, slice 6's other model family
     lgpp = layoutganpp_phase(torch, np, args, card, attention, bias_act_mod, len(enc_calls))
 
+    # 15. multi-GPU training, this slice's path, on phase 9's zip
+    torch.cuda.empty_cache()
+    multi = multi_gpu_phase(torch, np, args, card, attention, bias_act_mod, workdir.name, zip_path,
+                            run_t, states_path)
+    workdir.cleanup()
+
     kernels = kernel_records(attn_cases, bias_cases, serve_launches, train, run, evaluation, http,
-                             bench_rec, vit, lgpp, enc_cases)
+                             bench_rec, vit, lgpp, enc_cases, multi, other_bias_cases)
     log(json.dumps({"serving": serving, "train": train, "step_correctness": correctness,
                     "training_run": run, "evaluation": evaluation, "http_serving": http,
-                    "bench": bench_rec, "vit": vit, "layoutganpp": lgpp,
+                    "bench": bench_rec, "vit": vit, "layoutganpp": lgpp, "multi_gpu": multi,
                     "bias_act_encoder_cases": enc_cases,
                     "model_max_abs": err, "model_bf16_max_abs": err_bf16,
                     "model_bf16_vs_fp32_max_abs": err_bf16_fp32, "cpu_max_abs": err_cpu,
@@ -2494,14 +2851,15 @@ def main() -> int:
     return 0
 
 
-def bg_decoder_calls(torch, cfg, batch: int) -> list:
+def bg_decoder_calls(torch, cfg, batch: int, disc=None) -> list:
     """The arguments of the 48 bias_act calls of one bg_decoder forward at
-    full width (seeded random weights)."""
+    full width (``disc``'s, or seeded random weights), and the D."""
     from layoutdetr_tpu_torch.models.discriminator import Discriminator
     from layoutdetr_tpu_torch.ops import bias_act as bias_act_mod
 
-    with torch.device("cuda"):
-        disc = Discriminator(cfg)
+    if disc is None:
+        with torch.device("cuda"):
+            disc = Discriminator(cfg)
     calls = []
     x0 = torch.randn(batch, cfg.hidden_dim, device="cuda")
     with recorded_bias_act_calls(bias_act_mod, calls), torch.no_grad():
@@ -2559,6 +2917,73 @@ def attention_only(torch, args) -> int:
     cases = attention_phase(torch, attention, args.seed, serving_attention_shapes(args.batch))
     host = attention_host_costs(torch, attention)
     log(json.dumps({"tree": ROOT, "card": card, "host": host, "cases": cases}))
+    return 0
+
+
+def multi_card_only(torch, args) -> int:
+    """``python -m layoutdetr_tpu_torch.train --gpus N`` over every visible
+    card (one process a card, NCCL) at full width on phase 9's zip (bf16,
+    batch 16, auto T, ADA, R1 and path length, a snapshot each tick),
+    RUN_STEPS steps: on one card (what the others compare with), data
+    parallel over N and with ``--model-parallel 2``; after each, one
+    request served from its snapshot on one card. Prints each
+    run's sec/kimg (tick 1: steps 2-17), wall, rank 0's peak memory and
+    stats as one JSON line, and no ok line."""
+    from layoutdetr_tpu_torch import generate
+    from layoutdetr_tpu_torch import train as train_cli
+    from layoutdetr_tpu_torch.ops import _build
+
+    card = nvidia_smi()
+    n = torch.cuda.device_count()
+    log(f"multi-card: {n} x {card}")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        list(pool.map(_build.build, ("attention", "bias_act")))
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_multi_")
+    zip_path, _, t = run_dataset(tmp.name, args.seed)
+    bg = os.path.join(tmp.name, "bg.png")
+    import zipfile
+
+    with zipfile.ZipFile(zip_path) as zf, open(bg, "wb") as f:
+        f.write(zf.read("00000000_background_orig.png"))
+    runs = []
+    for gpus, mp in ((1, 1), (n, 1), (n, 2)):  # one card first: what the others compare with
+        out = os.path.join(tmp.name, f"runs-{gpus}-{mp}")
+        t0 = time.perf_counter()
+        train_cli.main(["--outdir", out, "--data", zip_path, "--batch", str(args.batch), "--bf16",
+                        "--max-text-length", "auto", "--aug", "ada", "--gamma", "1",
+                        "--pl-weight", "2", "--seed", str(args.seed), "--snap", "1",
+                        "--metrics", "none", "--max-steps", str(RUN_STEPS), "--gpus", str(gpus),
+                        "--model-parallel", str(mp)])
+        wall_s = time.perf_counter() - t0
+        (run_name,) = os.listdir(out)
+        run_dir = os.path.join(out, run_name)
+        records = read_jsonl(os.path.join(run_dir, "stats.jsonl"))
+        reports = sum(r["Loss/G/loss_Ggen"]["num"] for r in records)
+        bad = [k for r in records for k, v in r.items() if isinstance(v, dict) and v["num"]
+               and not (math.isfinite(v["mean"]) and math.isfinite(v["std"]))]
+        if reports != gpus * RUN_STEPS or bad:
+            raise AssertionError(f"--gpus {gpus} --model-parallel {mp}: {reports} main-step "
+                                 f"reports (expected {gpus * RUN_STEPS}), non-finite {bad}")
+        snap = os.path.join(run_dir, "network-snapshot-000000.pt")
+        (layout,) = generate.main(["--ckpt", snap, "--bg", bg, "--strings", "summer sale|shop now",
+                                   "--string-labels", "header|button", "--device", "cuda",
+                                   "--outfile", os.path.join(out, "served", "banner")])
+        if not ((layout.raw > 0) & (layout.raw < 1)).all():
+            raise AssertionError(f"served from the --gpus {gpus} --model-parallel {mp} snapshot: "
+                                 f"{layout.raw}")
+        last = records[-1]
+        runs.append(dict(gpus=gpus, model_parallel=mp, batch=args.batch, T=t, steps=RUN_STEPS,
+                         wall_s=wall_s, sec_per_kimg=last["sec_per_kimg"],
+                         main_step_s=last["main_step_s"], reg_step_s=last["reg_step_s"],
+                         devmem_peak_gb=max(r["devmem_peak_gb"] for r in records),
+                         losses={k: v["mean"] for k, v in last.items()
+                                 if isinstance(v, dict) and v["num"]}))
+        log(f"train --gpus {gpus} --model-parallel {mp} ({'NCCL' if gpus > 1 else 'no group'}), "
+            f"bf16 batch {args.batch} T={t}, "
+            f"{RUN_STEPS} steps: {last['sec_per_kimg']:.2f} sec/kimg (tick 1), wall {wall_s:.1f} s, "
+            f"rank 0 peak {runs[-1]['devmem_peak_gb']:.2f} GiB; served from its snapshot  [{card}]")
+    tmp.cleanup()
+    print(json.dumps({"multi_card": runs, "card": card}), flush=True)
     return 0
 
 
@@ -2694,7 +3119,7 @@ def largest_lrelu(cases: list) -> dict:
 
 def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run: dict,
                    evaluation: dict, http: dict, bench_rec: dict, vit: dict, lgpp: dict,
-                   enc_cases: list) -> list:
+                   enc_cases: list, multi: dict, other_bias_cases: list) -> list:
     """The kernels line: each kernel at its representative case (fp32,
     T=256 for attention; one fp32 step's 48 bias_act calls summed), with
     the launches of each main path that runs it (``launches_by_path``) and
@@ -2704,10 +3129,13 @@ def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run
     training run's reg steps, summaries, previews and metric ticks, the
     evaluation, the HTTP server and the bench's --infer; the bench's train
     step runs the dropout form and both bias_act kernels; the ViT's serving,
-    train step and training run with its evaluation, and LayoutGAN++'s
-    forwards and D backward, each a path of its own). bias_act's record
+    train step and training run with its evaluation, LayoutGAN++'s
+    forwards and D backward, and phase 15's ranks summed over the ranks,
+    each a path of its own). bias_act's record
     also sums one LayoutGAN++ bg_encoder forward's calls
-    (``per_encoder_forward``)."""
+    (``per_encoder_forward``) and holds the bg_decoder's cases at the
+    paths' other batches (``other_batch_cases``: max_abs_err covers
+    them too)."""
     def attn(rate):
         return next(c for c in attn_cases if c["dtype"] == "float32" and c["shape"][2] == 256
                     and c["dropout_rate"] == rate)
@@ -2725,7 +3153,8 @@ def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run
     for k in ("fused_attention_dropout", "bias_act", "bias_act_backward"):
         by_path[k]["bench_train"] = bench_rec["train"]["launches"][k]
     vit_paths = dict(vit_serving=vit["serving"]["launches"], vit_train_step=vit["train"][0]["launches"],
-                     vit_training_run=vit["training_run"]["launches"], layoutganpp=lgpp["launches"])
+                     vit_training_run=vit["training_run"]["launches"], layoutganpp=lgpp["launches"],
+                     multi_gpu=multi["launches"])
     for path, launches in vit_paths.items():
         for k, n in launches.items():
             if n:
@@ -2746,7 +3175,10 @@ def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run
         out.append(dict(name=name, route="cuda", source=src + "bias_act.cu",
                         replaces="layoutdetr_tpu/ops/bias_act.py:145",
                         launches=sum(by_path[name].values()), launches_by_path=by_path[name],
-                        max_abs_err=tot[f"max_rel_err_{key}"], ms=tot[f"{key}_ms"],
+                        max_abs_err=max(tot[f"max_rel_err_{key}"],
+                                        per_step_totals(other_bias_cases, "float32")[
+                                            f"max_rel_err_{key}"]),
+                        ms=tot[f"{key}_ms"],
                         plain_ms=tot[f"plain_{key}_ms"], bound_ms=tot[f"{key}_bound_ms"],
                         bound_by="bytes", library_ms=tot[f"library_{key}_ms"],
                         library_calls=tot["library_calls"],
@@ -2758,7 +3190,7 @@ def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run
                                                ms_on_library_calls=tot16[f"{key}_ms_library_calls"]),
                         per_encoder_forward=per_step_totals(enc_cases, "float32"),
                         per_encoder_forward_bfloat16=per_step_totals(enc_cases, "bfloat16"),
-                        encoder_cases=enc_cases,
+                        encoder_cases=enc_cases, other_batch_cases=other_bias_cases,
                         note="ms, plain_ms and bound_ms sum one step's 48 calls; library_ms "
                              "sums only the library_calls calls that are linear with gain 1 and "
                              "no clamp (torch.add forward, torch.sum of dy for db backward), "

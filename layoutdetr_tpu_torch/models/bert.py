@@ -43,6 +43,7 @@ from torch import nn
 from layoutdetr_tpu_torch.config import BertConfig
 from layoutdetr_tpu_torch.models.layers import Dense, LayerNorm, dropout
 from layoutdetr_tpu_torch.ops.attention import fused_attention
+from layoutdetr_tpu_torch.parallel import tensor_parallel
 
 NEG_MASK = -10000.0
 IGNORE_INDEX = -100
@@ -67,12 +68,18 @@ def extended_attention_bias(attention_mask: torch.Tensor, is_decoder: bool = Fal
 
 
 class BertSelfAttention(nn.Module):
-    """Self- or cross-attention: separate q/k/v denses, k/v ``kv_width`` wide."""
+    """Self- or cross-attention: separate q/k/v denses, k/v ``kv_width`` wide.
+
+    Under tensor parallelism q, k and v hold a slice of the heads
+    (``tensor_parallel.shard_module_``): the rank's h of ``num_heads``,
+    from head ``model index x h`` on; the head dim stays
+    ``hidden_size / num_heads``."""
 
     def __init__(self, cfg: BertConfig, kv_width: int, dtype=torch.float32):
         super().__init__()
         d = cfg.hidden_size
         self.num_heads = cfg.num_attention_heads
+        self.head_dim = d // cfg.num_attention_heads
         self.flash_attention = cfg.flash_attention
         self.probs_dropout = cfg.attention_probs_dropout_prob
         self.query = _bert_dense(d, d, dtype)
@@ -80,9 +87,12 @@ class BertSelfAttention(nn.Module):
         self.value = _bert_dense(kv_width, d, dtype)
 
     def forward(self, hidden, attn_bias, deterministic=True, generator=None, seed=None):
-        b, t, d = hidden.shape
-        h = self.num_heads
-        hd = d // h
+        b, t, _ = hidden.shape
+        hd = self.head_dim
+        h, rest = divmod(self.query.weight.shape[0], hd)  # the rank's heads
+        if rest:
+            raise ValueError(f"{self.query.weight.shape[0]} query rows are not whole heads of {hd}")
+        shard = tensor_parallel.model_slice(self.num_heads, h)
         q = self.query(hidden).view(b, t, h, hd)
         k = self.key(hidden).view(b, t, h, hd)
         v = self.value(hidden).view(b, t, h, hd)
@@ -92,13 +102,16 @@ class BertSelfAttention(nn.Module):
             rate = 0.0 if deterministic else self.probs_dropout
             out = fused_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                   attn_bias[:, 0, 0, :].float().contiguous(),
-                                  scale=1.0 / math.sqrt(hd), dropout_rate=rate, seed=seed)
-            return out.transpose(1, 2).reshape(b, t, d)
+                                  scale=1.0 / math.sqrt(hd), dropout_rate=rate, seed=seed,
+                                  head_offset=0 if shard is None else shard[0] * h,
+                                  total_heads=self.num_heads)
+            return out.transpose(1, 2).reshape(b, t, h * hd)
 
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
         probs = torch.softmax(scores.float() + attn_bias, dim=-1)
-        probs = dropout(probs, self.probs_dropout, deterministic, generator)
-        return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v).reshape(b, t, d)
+        probs = dropout(probs, self.probs_dropout, deterministic, generator,
+                        None if shard is None else (1, *shard))
+        return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v).reshape(b, t, h * hd)
 
 
 class BertSelfOutput(nn.Module):

@@ -34,9 +34,14 @@ from layoutdetr_tpu_torch.models.layers import (
     dropout,
     padding_bias,
 )
+from layoutdetr_tpu_torch.parallel import tensor_parallel
 
 
 class _FFN(nn.Module):
+    """linear1 -> relu -> dropout -> linear2 -> dropout. Under tensor
+    parallelism linear1 holds the rank's slice of the hidden units, and
+    their dropout keeps that slice of the whole mask."""
+
     def __init__(self, d_model: int, dim_feedforward: int, rate: float, dtype):
         super().__init__()
         self.rate = rate
@@ -44,7 +49,10 @@ class _FFN(nn.Module):
         self.linear2 = Dense(dim_feedforward, d_model, dtype=dtype)
 
     def ffn(self, x, deterministic, generator):
-        h = dropout(F.relu(self.linear1(x)), self.rate, deterministic, generator)
+        shard = tensor_parallel.model_slice(self.linear1.out_features,
+                                            self.linear1.weight.shape[0])
+        shard = None if shard is None else (-1, *shard)
+        h = dropout(F.relu(self.linear1(x)), self.rate, deterministic, generator, shard)
         return dropout(self.linear2(h), self.rate, deterministic, generator)
 
 

@@ -175,6 +175,13 @@ class Generator(nn.Module):
         return bbox_fake, loss_z, logit_cls, loss_lm, loss_text_len
 
 
+def text_reconstruction_tokens(text_ids, valid, pad_token_id: int) -> torch.Tensor:
+    """How many target tokens ``text_reconstruction_loss`` averages over:
+    every valid element's tokens after the first (the shift), pads
+    ignored."""
+    return ((text_ids[..., 1:] != pad_token_id) & valid[..., None]).sum()
+
+
 def text_reconstruction_loss(text_decoder: BertLMHeadModel, cfg: GeneratorConfig, text_ids,
                              text_mask, valid, deterministic=True, generator=None):
     """The text decoder's LM loss over every valid element's string

@@ -10,7 +10,11 @@ Counterpart of ``layoutdetr_tpu/models/layers.py``. Conventions kept:
 - masks are additive float biases;
 - dropout follows JAX's ``deterministic`` flag; its masks come from an
   explicit ``torch.Generator`` on the tensor's device, never from the
-  global RNG state.
+  global RNG state;
+- under tensor parallelism (``parallel.tensor_parallel``) a ``Dense``
+  whose weight holds a slice of its outputs or inputs is column- or
+  row-parallel, and a dropout of a sharded activation draws the whole
+  mask and keeps its slice.
 
 Parameter names and layouts are torch's own (``weight`` [out, in],
 ``in_proj_weight`` [3D, D], ``out_proj``), so a state dict of the port
@@ -26,9 +30,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from layoutdetr_tpu_torch.parallel import tensor_parallel
+
 
 class Dense(nn.Linear):
-    """nn.Linear whose matmul runs in ``dtype`` (params stay fp32)."""
+    """nn.Linear whose matmul runs in ``dtype`` (params stay fp32).
+    A weight narrower than [out_features, in_features] makes it a
+    tensor-parallel layer (``tensor_parallel.shard_module_``): fewer rows
+    hold a rank's slice of the outputs (column-parallel), fewer columns
+    a slice of the inputs (row-parallel). The shape marks the role, so a
+    copy.deepcopy (G_ema) keeps it."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -38,6 +49,12 @@ class Dense(nn.Linear):
     def forward(self, x):
         dt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(dt)
+        rows, cols = self.weight.shape
+        if cols != self.in_features:  # partial products summed over the model group, then the bias
+            y = tensor_parallel.reduce_from_model(F.linear(x.to(dt), self.weight.to(dt)))
+            return y if b is None else y + b
+        if rows != self.out_features:
+            x = tensor_parallel.copy_to_model(x)
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
@@ -67,16 +84,26 @@ class LayerNorm(nn.LayerNorm):
 
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator], shard=None) -> torch.Tensor:
     """Inverted dropout (flax ``nn.Dropout``): keep each entry with
     probability 1 - rate and scale it by 1 / (1 - rate). The identity when
     ``deterministic`` or ``rate == 0``; otherwise the keep mask is drawn
-    from ``generator``."""
+    from ``generator``. ``shard`` = (dim, index, count): ``x`` is slice
+    ``index`` of ``count`` along ``dim`` of the whole activation; the whole
+    mask is drawn and the slice kept (a tensor-parallel rank drops what
+    one process drops)."""
     if deterministic or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout with deterministic=False needs a torch.Generator")
-    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    if shard is None:
+        keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    else:
+        dim, index, count = shard
+        shape = list(x.shape)
+        shape[dim] *= count
+        keep = x.new_empty(shape).bernoulli_(1.0 - rate, generator=generator)
+        keep = keep.narrow(dim, index * x.shape[dim], x.shape[dim])
     return torch.where(keep.bool(), x / (1.0 - rate), 0.0)
 
 

@@ -83,12 +83,17 @@ def dropout_threshold(rate: float) -> int:
     return int(rate * 4294967296.0)
 
 
-def keep_mask(seed: int, batch: int, heads: int, seq: int, rate: float, device=None):
+def keep_mask(seed: int, batch: int, heads: int, seq: int, rate: float, device=None,
+              head_offset: int = 0, total_heads=None):
     """[batch, heads, seq, seq] bool keep mask of the dropout form, the
-    bits ``attention.cu`` draws: key (seed, b*heads + h), counter
-    (k // 4, q, 0, 0), word k % 4."""
+    bits ``attention.cu`` draws: key (seed, b*H + head_offset + h), counter
+    (k // 4, q, 0, 0), word k % 4, where H = ``total_heads`` (default
+    ``heads``). A tensor-parallel rank that holds heads [head_offset,
+    head_offset + heads) of H draws the same bits as a pass over all H."""
+    total_heads = heads if total_heads is None else total_heads
     groups = (seq + 3) // 4
-    bh = torch.arange(batch * heads, device=device).view(batch, heads, 1, 1)
+    bh = (torch.arange(batch, device=device).view(batch, 1, 1, 1) * total_heads + head_offset
+          + torch.arange(heads, device=device).view(1, heads, 1, 1))
     q = torch.arange(seq, device=device).view(1, 1, seq, 1)
     grp = torch.arange(groups, device=device).view(1, 1, 1, groups)
     words = philox4x32((grp, q, 0, 0), (seed & _MASK32, bh))
@@ -128,7 +133,8 @@ class _Params(ctypes.Structure):
     _fields_ = [("dtype", ctypes.c_int), ("batch", ctypes.c_int), ("heads", ctypes.c_int),
                 ("seq", ctypes.c_int), ("head_dim", ctypes.c_int), ("scale", ctypes.c_float),
                 ("dropout", ctypes.c_int), ("threshold", ctypes.c_uint),
-                ("inv_keep", ctypes.c_float), ("pad_", ctypes.c_int),
+                ("inv_keep", ctypes.c_float), ("head_offset", ctypes.c_int),
+                ("total_heads", ctypes.c_int), ("pad_", ctypes.c_int),
                 ("strides", ctypes.c_longlong * 12), ("maps", _MapGeom * 4)]
 
 
@@ -182,7 +188,7 @@ class Plan:
 
 
 def make_plan(q: Spec, k: Spec, v: Spec, o: Spec, bias: Spec, scale: float,
-              dropout_rate: float) -> Plan:
+              dropout_rate: float, head_offset: int = 0, total_heads=None) -> Plan:
     """The plan of one call signature; raises on what the kernels do not take."""
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"fused_attention takes float32 or bfloat16, got {q.dtype}")
@@ -196,6 +202,9 @@ def make_plan(q: Spec, k: Spec, v: Spec, o: Spec, bias: Spec, scale: float,
         raise ValueError(f"head dim {d}: the kernel is built for {HEAD_DIM}")
     if min(b, h, s) < 1:
         raise ValueError("fused_attention's kernels take no empty tensor")
+    total_heads = h if total_heads is None else total_heads
+    if head_offset < 0 or total_heads < head_offset + h:
+        raise ValueError(f"heads [{head_offset}, {head_offset + h}) do not lie in {total_heads}")
     if bias.dtype != torch.float32 or bias.shape != (b, s) or (s > 1 and bias.stride[1] != 1) or (
             b > 1 and bias.stride[0] != s):
         raise ValueError(f"bias must be a contiguous float32 [{b}, {s}] tensor")
@@ -211,7 +220,8 @@ def make_plan(q: Spec, k: Spec, v: Spec, o: Spec, bias: Spec, scale: float,
     params = _Params(dtype=_DTYPE_CODE[q.dtype], batch=b, heads=h, seq=s, head_dim=d,
                      scale=scale, dropout=int(dropout_rate > 0.0),
                      threshold=dropout_threshold(dropout_rate),
-                     inv_keep=1.0 / (1.0 - dropout_rate),
+                     inv_keep=1.0 / (1.0 - dropout_rate), head_offset=head_offset,
+                     total_heads=total_heads,
                      strides=(ctypes.c_longlong * 12)(*(st for t in (q, k, v, o)
                                                         for st in t.stride[:3])))
     for geom, m in zip(params.maps, maps):
@@ -224,18 +234,21 @@ def make_plan(q: Spec, k: Spec, v: Spec, o: Spec, bias: Spec, scale: float,
 _plans: dict = {}
 
 
-def _check(q, k, v, bias, out=None, scale: float = 1.0, dropout_rate: float = 0.0) -> Plan:
+def _check(q, k, v, bias, out=None, scale: float = 1.0, dropout_rate: float = 0.0,
+           head_offset: int = 0, total_heads=None) -> Plan:
     """The cached plan of this call (``out`` defaults to ``empty_like(q)``'s
     layout), after the checks a call needs: one device, every pointer
     16-byte aligned. Raises on whatever the kernels do not take."""
     if out is None:
         out = torch.empty_like(q)
     key = (q.shape, q.stride(), q.dtype, k.shape, k.stride(), k.dtype, v.shape, v.stride(),
-           v.dtype, out.stride(), bias.shape, bias.stride(), bias.dtype, scale, dropout_rate)
+           v.dtype, out.stride(), bias.shape, bias.stride(), bias.dtype, scale, dropout_rate,
+           head_offset, total_heads)
     plan = _plans.get(key)
     if plan is None:
         plan = _plans[key] = make_plan(Spec.of(q), Spec.of(k), Spec.of(v), Spec.of(out),
-                                       Spec.of(bias), scale, dropout_rate)
+                                       Spec.of(bias), scale, dropout_rate, head_offset,
+                                       total_heads)
     dev = q.get_device()
     if k.get_device() != dev or v.get_device() != dev or bias.get_device() != dev:
         raise ValueError("q, k, v and bias must lie on one device")
@@ -263,7 +276,8 @@ def _lib():
     return fn, enc, torch._C._cuda_getCurrentRawStream
 
 
-def fused_attention(q, k, v, bias, *, scale, dropout_rate=0.0, seed=None):
+def fused_attention(q, k, v, bias, *, scale, dropout_rate=0.0, seed=None, head_offset=0,
+                    total_heads=None):
     """q, k, v: [B,H,S,D]; bias: [B,S] float32 additive key mask.
 
     Returns [B,H,S,D] in q's dtype, laid out like q. On the card D must be
@@ -274,6 +288,8 @@ def fused_attention(q, k, v, bias, *, scale, dropout_rate=0.0, seed=None):
 
     ``dropout_rate`` in (0, 1) drops probabilities out with the Philox keep
     mask keyed by ``seed`` (an int, required then); see ``keep_mask``.
+    ``head_offset`` and ``total_heads`` place q's heads among a layer's
+    heads (a tensor-parallel rank's share) in the mask's key.
     """
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must lie in [0, 1), got {dropout_rate}")
@@ -284,12 +300,14 @@ def fused_attention(q, k, v, bias, *, scale, dropout_rate=0.0, seed=None):
         mask = None
         if dropout_rate > 0.0:
             b, h, s, _ = q.shape
-            mask = keep_mask(seed, b, h, s, dropout_rate)
+            mask = keep_mask(seed, b, h, s, dropout_rate, head_offset=head_offset,
+                             total_heads=total_heads)
         return attention_ref(q, k, v, bias, scale, dropout_rate, mask)
     if not q.is_cuda:
         raise ValueError(f"fused_attention runs on CUDA or CPU tensors, got {q.device}")
     out = torch.empty_like(q)
-    plan = _check(q, k, v, bias, out, float(scale), float(dropout_rate))
+    plan = _check(q, k, v, bias, out, float(scale), float(dropout_rate), head_offset,
+                  total_heads)
     fn, _, stream = _lib()
     dev = q.get_device()
     err = fn(plan.addr, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),

@@ -87,7 +87,7 @@
 // seeded seed + b*H + h; those bits cannot be had here. This kernel keeps
 // probability p[b, h, q, k] when the Philox4x32-10 word for it is >= the
 // threshold rate * 2^32 (as the TPU kernel compares its bits), with
-//     key     = (seed, b*H + h)
+//     key     = (seed, b*H + h)   (H the whole layer's heads; see below)
 //     counter = (k / 4, q, 0, 0), word k % 4,
 // so one 128-bit draw covers 4 consecutive keys and the bits depend on
 // neither the tiling nor the dtype. ops/attention.py computes the same
@@ -99,6 +99,12 @@
 // masks 2 groups of 4 keys there. bf16: the two threads of a quad that
 // hold one group's keys (rows g and g + 8) each draw one of the two rows'
 // words and swap the halves the other needs with one shuffle.
+// Under tensor parallelism a launch holds only a rank's heads of each
+// sequence: Params carries the layer's head count (total_heads, the H of
+// the key) and the rank's first head (head_offset), and local head h keys
+// as head head_offset + h, so the rank drops exactly what a launch over
+// all heads drops for those heads. One launch over all heads has
+// head_offset 0 and total_heads = heads.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -129,6 +135,8 @@ struct Params {
   int dropout;         // 0: deterministic
   unsigned threshold;  // keep when bits >= threshold (rate * 2^32)
   float inv_keep;      // 1 / (1 - rate)
+  int head_offset;     // the Philox key's heads: local head h is head_offset + h
+  int total_heads;     // of total_heads (>= head_offset + heads) in each sequence
   int pad_;
   long long strides[4][3];  // elements: (batch, head, seq) of q, k, v, o
   MapGeom maps[4];          // q, k, v, o
@@ -153,6 +161,7 @@ struct Args {
   float scale;  // fp32: scale; bf16: scale * log2 e
   int dropout;
   unsigned seed;  // Philox key word 0
+  int head_offset, total_heads;  // key word 1 = b * total_heads + head_offset + h
   unsigned threshold;
   float inv_keep;
   int q_tiles;  // bf16: 128-query tiles of one (sequence, head)
@@ -254,6 +263,7 @@ __global__ void __launch_bounds__(kF32Threads, 2) attention_fwd_f32_kernel(const
 
   const int b = blockIdx.x / a.heads;
   const int h = blockIdx.x - b * a.heads;
+  const unsigned key_head = b * a.total_heads + a.head_offset + h;
   const int q0 = blockIdx.y * kF32Q;
   const int seq = a.seq;
   // q k^T: thread (sx, sy) owns rows sy + 16 i (i < 4), keys sx + 8 j (j < 4)
@@ -374,7 +384,7 @@ __global__ void __launch_bounds__(kF32Threads, 2) attention_fwd_f32_kernel(const
         const int r = gi / kGroups;
         const int cg = gi - r * kGroups;
         const uint4 bits = philox4x32_10(make_uint4((k0 >> 2) + cg, q0 + r, 0u, 0u),
-                                         make_uint2(a.seed, blockIdx.x));
+                                         make_uint2(a.seed, key_head));
         float4* pr = reinterpret_cast<float4*>(Ps + r * ldp + 4 * cg);
         float4 p = *pr;
         p.x = keep_or_drop(bits.x, p.x, a);
@@ -687,6 +697,7 @@ __device__ __forceinline__ void bf16_consumer(const CUtensorMap* tm_o, const Arg
     const int bh = tile / a.q_tiles;
     const int q0w = (tile - bh * a.q_tiles) * kQRows + 64 * cw;
     const int b = bh / a.heads, h = bh - b * a.heads;
+    const unsigned key_head = b * a.total_heads + a.head_offset + h;
     const int qb = it & 1;
     const bool active = q0w < seq;  // uniform over the warpgroup
     const uint32_t qbase = base + kOffQ + qb * kQBuf + cw * (kSubQ / 2);
@@ -762,7 +773,7 @@ __device__ __forceinline__ void bf16_consumer(const CUtensorMap* tm_o, const Arg
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
             const uint4 bits = philox4x32_10(make_uint4((k0 >> 2) + 2 * j + (t >> 1), row, 0u, 0u),
-                                             make_uint2(a.seed, bh));
+                                             make_uint2(a.seed, key_head));
             const unsigned send0 = odd ? bits.x : bits.z, send1 = odd ? bits.y : bits.w;
             const unsigned recv0 = __shfl_xor_sync(0xffffffffu, send0, 1);
             const unsigned recv1 = __shfl_xor_sync(0xffffffffu, send1, 1);
@@ -946,7 +957,8 @@ bool geom_ok(const MapGeom& g) {
 bool valid(const Params* p, int dev) {
   if (p == nullptr || dev < 0 || dev >= kMaxDevices) return false;
   if ((p->dtype != 0 && p->dtype != 1) || p->batch <= 0 || p->heads <= 0 || p->seq <= 0 ||
-      p->head_dim != kHeadDim || !(p->inv_keep >= 1.f))
+      p->head_dim != kHeadDim || !(p->inv_keep >= 1.f) || p->head_offset < 0 ||
+      p->total_heads < p->head_offset + p->heads)
     return false;
   if (p->dtype == 1)
     for (int i = 0; i < 4; ++i)
@@ -978,6 +990,8 @@ Args make_args(const Params& p, const void* q, const void* k, const void* v, con
   a.scale = p.dtype == 1 ? p.scale * kLog2e : p.scale;
   a.dropout = p.dropout;
   a.seed = seed;
+  a.head_offset = p.head_offset;
+  a.total_heads = p.total_heads;
   a.threshold = p.threshold;
   a.inv_keep = p.inv_keep;
   a.q_tiles = (p.seq + kQRows - 1) / kQRows;

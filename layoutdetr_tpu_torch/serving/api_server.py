@@ -238,13 +238,15 @@ def make_server(cfg: ServerConfig, host: str = "127.0.0.1", port: int = 0) -> HT
                 self.send_error(404)
 
         def do_POST(self):
+            # the body is read before any answer: a socket closed with unread
+            # request bytes resets, and the client may lose the 404
+            raw = self.rfile.read(int(self.headers.get("Content-Length", 0)))
             handler = ROUTES.get(self.path)
             if handler is None:
                 self.send_error(404)
                 return
             try:
-                body = json.loads(self.rfile.read(int(self.headers.get("Content-Length", 0)))
-                                  or b"{}")
+                body = json.loads(raw or b"{}")
                 self._reply(200, handler(cfg, body))
             except Exception as e:  # the client gets the error as JSON
                 traceback.print_exc()

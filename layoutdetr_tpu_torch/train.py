@@ -2,7 +2,7 @@
 
     python -m layoutdetr_tpu_torch.train --outdir runs --data train.zip --batch 16 \\
         [--bf16] [--max-text-length auto] [--aug ada] [--gamma 1] [--pl-weight 2] \\
-        [--device cuda]
+        [--device cuda] [--chips N] [--model-parallel M] [--load-patches]
 
 Counterpart of the JAX package's ``train.py`` (reference train.py:128-305):
 the same option names and defaults, the same derived loss weights
@@ -15,12 +15,22 @@ snapshots and exits. argparse instead of click. Differences:
 - ``--metrics`` (default ``layout_fid50k_val``) runs at snapshot ticks,
   every ``--metric-ticks``, on G_ema where it lives (``make_metrics_fn``);
   ``--layoutnet-ckpt`` is a torch state dict;
-- one GPU: ``--chips``/``--gpus`` and ``--model-parallel`` above 1 raise,
-  and so does ``--load-patches`` (ROADMAP Queue A);
 - ``--remat`` is accepted and does nothing: batch 16 fits an 80 GB card.
 
+Several GPUs, as JAX's ``--chips`` spans every visible chip
+(train.py:6-7): ``--chips``/``--gpus`` N (default: every visible card)
+runs one process per card, rank r on ``cuda:r``, over NCCL
+(``parallel.distributed.spawn``); ``--model-parallel`` M folds the N ranks
+into N/M data x M model ranks (``parallel.tensor_parallel``); ``--batch``
+is the global batch. Asking for more cards than are visible is an error.
+Under torchrun (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` set) this process
+is that rank and spawns nothing. ``--device cpu --chips N`` spawns N gloo
+ranks on the CPU (JAX's virtual CPU mesh; a rehearsal). One card and no
+torchrun: no process group, as before.
+
 Importing this module starts nothing; ``main(argv)`` runs the CLI and
-returns the final ``GANTrainState`` (None for ``--dry-run``).
+returns the final ``GANTrainState`` of a one-process run (None for
+``--dry-run`` and for a spawned multi-rank run).
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import json
 import os
 import re
 import signal
+import sys
 from typing import Optional, Sequence
 
 import torch
@@ -154,12 +165,14 @@ def build_parser() -> argparse.ArgumentParser:
     _flag_pair(ap, "--bf16", "--fp32", "use_bf16", False,
                "bf16 activations on the tensor cores (parameters stay fp32)")
     _flag_pair(ap, "--remat", "--no-remat", "remat", None, "accepted; the port does not rematerialize")
-    add("--chips", type=pos_int, default=None, help="device count; only 1 (ROADMAP item 19)")
-    add("--model-parallel", type=pos_int, default=1, help="only 1 (ROADMAP item 19)")
+    add("--chips", type=pos_int, default=None,
+        help="ranks, one a card (default: every visible card; 1 on the CPU)")
+    add("--model-parallel", type=pos_int, default=1,
+        help="tensor-parallel degree: the ranks fold into (data, model) groups")
     add("--max-steps", type=int, default=None, help="stop after N steps")
     add("-n", "--dry-run", action="store_true", default=False)
     # reference-CLI compatibility (SURVEY.md §2.10): accepted, no effect
-    add("--gpus", type=pos_int, default=None, help="alias of --chips")
+    add("--gpus", type=pos_int, default=None, help="the reference's name of --chips")
     add("--cond", type=_bool, default=False)
     add("--mirror", type=_bool, default=False)
     add("--freezed", type=nn_int, default=0)
@@ -171,10 +184,11 @@ def build_parser() -> argparse.ArgumentParser:
     add("--workers", type=nn_int, default=None,
         help="prefetch worker processes of the host loader (0: one thread; default min(8, cores))")
     _flag_pair(ap, "--load-patches", "--no-load-patches", "load_patches", False,
-               "decode patch PNGs every batch: not ported (ROADMAP Queue A)")
+               "decode the elements' patch PNGs into every batch on the host (no loss reads "
+               "them; the reference's full host I/O); needs the host loader")
     add("--device-feed", choices=["auto", "on", "off"], default="auto",
         help="keep the dataset on the card and feed indices (auto: when it fits "
-             "LAYOUTDETR_DEVICE_CACHE_GB, default 4)")
+             "LAYOUTDETR_DEVICE_CACHE_GB, default 4, and --load-patches is off)")
     add("--g-f-dim", type=pos_int, default=256)
     add("--g-num-heads", type=pos_int, default=4)
     add("--g-num-layers", type=pos_int, default=8)
@@ -186,16 +200,45 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _check_supported(ap: argparse.ArgumentParser, opts) -> None:
-    devices = opts.chips if opts.chips is not None else opts.gpus
-    if (devices or 1) > 1 or opts.model_parallel > 1:
-        ap.error("more than one GPU waits for ROADMAP Queue A item 19 (multi-GPU)")
     from layoutdetr_tpu_torch.metrics import metric_main
 
     for m in opts.metrics:
         if not metric_main.is_valid_metric(m):
             ap.error(f"unknown metric {m}; valid: {metric_main.list_valid_metrics()}")
-    if opts.load_patches:
-        ap.error("--load-patches is not ported (ROADMAP Queue A)")
+    if opts.load_patches and opts.device_feed == "on":
+        ap.error("--device-feed on does not take --load-patches (the patches stay on the host)")
+
+
+def _torchrun_rank() -> Optional[tuple]:
+    """(rank, world, local rank) under torchrun's environment, else None."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return None
+    return (int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+            int(os.environ.get("LOCAL_RANK", os.environ["RANK"])))
+
+
+def _ranks(ap: argparse.ArgumentParser, opts, device: torch.device) -> int:
+    """The run's rank count: ``--chips``/``--gpus``, else every visible
+    card (1 on the CPU); an error past the visible cards, or when the
+    model-parallel degree or the data-parallel share of the batch does not
+    divide."""
+    asked = opts.chips if opts.chips is not None else opts.gpus
+    launched = _torchrun_rank()
+    if launched is not None:
+        world = launched[1]
+    elif device.type == "cuda":
+        visible = torch.cuda.device_count()
+        world = visible if asked is None else asked
+        if world > visible:
+            ap.error(f"--chips {world}, but {visible} CUDA device(s) are visible")
+    else:
+        world = asked or 1
+    if world % opts.model_parallel:
+        ap.error(f"--model-parallel {opts.model_parallel} does not divide {world} ranks")
+    dp = world // opts.model_parallel
+    if opts.batch_size % dp:
+        ap.error(f"--batch {opts.batch_size} does not divide over {dp} data-parallel ranks")
+    return world
 
 
 def make_metrics_fn(opts, gcfg: GeneratorConfig, run_dir: str):
@@ -235,7 +278,41 @@ def main(argv: Optional[Sequence[str]] = None):
     device = torch.device(opts.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda, but torch sees no CUDA device (--device cpu trains on the CPU)")
+    world = _ranks(ap, opts, device)
+    launched = _torchrun_rank()
+    if launched is not None:  # this process is one rank of torchrun's
+        from layoutdetr_tpu_torch.parallel import distributed
 
+        rank, _, local = launched
+        if rank:  # rank 0 prints for all
+            sys.stdout = open(os.devnull, "w")
+        rank_device = torch.device(f"cuda:{local}") if device.type == "cuda" else device
+        distributed.init(rank, world, opts.model_parallel, rank_device)
+        try:
+            import torch.distributed as dist
+
+            run = [_prepare(opts, device, world) if rank == 0 else None]
+            dist.broadcast_object_list(run, src=0)  # rank 0 numbers the run directory
+            return None if run[0] is None else _train(opts, *run[0], rank == 0)
+        finally:
+            distributed.shutdown()
+
+    run = _prepare(opts, device, world)
+    if run is None:
+        return None
+    if world == 1:
+        return _train(opts, *run, True)
+    from layoutdetr_tpu_torch.parallel import distributed
+
+    devices = [f"cuda:{r}" for r in range(world)] if device.type == "cuda" else ["cpu"] * world
+    distributed.spawn(_rank_main, world, (opts, *run), model_parallel=opts.model_parallel,
+                      devices=devices)
+    return None
+
+
+def _prepare(opts, device: torch.device, world: int):
+    """The run's config, loss weights and numbered run directory (with
+    ``training_options.json``), printed; None for ``--dry-run``."""
     from layoutdetr_tpu_torch.data.dataset import LayoutDataset
 
     auto_text_len = opts.max_text_length.lower() == "auto"
@@ -279,14 +356,17 @@ def main(argv: Optional[Sequence[str]] = None):
                resume_kimg=opts.resume_kimg, num_samples=len(probe), metrics=opts.metrics,
                gcfg=gcfg.to_dict(), loss_weights=dataclasses.asdict(weights), aug=opts.aug,
                ada_target=opts.ada_target if opts.aug == "ada" else None, bf16=opts.use_bf16,
-               ema_kimg=opts.batch_size * 10 / 32, device=str(device))
+               ema_kimg=opts.batch_size * 10 / 32, device=str(device), ranks=world,
+               model_parallel=opts.model_parallel, load_patches=opts.load_patches)
     print()
     print("Training options:")
     print(json.dumps(cfg, indent=2, default=str))
     print()
     print(f"Output directory:    {run_dir}")
     print(f"Training data:       {opts.data} ({len(probe)} samples)")
-    print(f"Device:              {device}")
+    print(f"Device:              {device}"
+          + (f" x {world} ranks ({world // opts.model_parallel} data x {opts.model_parallel} "
+             f"model)" if world > 1 else ""))
     if opts.dry_run:
         print("Dry run; exiting.")
         return None
@@ -294,12 +374,25 @@ def main(argv: Optional[Sequence[str]] = None):
     os.makedirs(run_dir, exist_ok=True)
     with open(os.path.join(run_dir, "training_options.json"), "w") as f:
         json.dump(cfg, f, indent=2, default=str)
+    return gcfg, weights, run_dir
 
+
+def _rank_main(opts, gcfg: GeneratorConfig, weights: LossWeights, run_dir: str) -> None:
+    """One spawned rank of ``main``, inside its grid."""
+    from layoutdetr_tpu_torch.parallel import distributed
+
+    _train(opts, gcfg, weights, run_dir, distributed.grid().is_chief)
+
+
+def _train(opts, gcfg: GeneratorConfig, weights: LossWeights, run_dir: str, chief: bool):
+    """The training run of this process (a rank, or the whole run): rank 0
+    alone keeps ``log.txt`` and runs the metrics."""
     from layoutdetr_tpu_torch.training.train_loop import training_loop
     from layoutdetr_tpu_torch.utils.logging import Logger
     from layoutdetr_tpu_torch.utils.misc import enable_stack_dumps
 
-    metrics_fn = make_metrics_fn(opts, gcfg, run_dir) if opts.metrics else None
+    device = torch.device(opts.device)
+    metrics_fn = make_metrics_fn(opts, gcfg, run_dir) if opts.metrics and chief else None
     enable_stack_dumps()
     # SIGTERM finishes the tick, snapshots and exits; a second one kills.
     term = {"requested": False}
@@ -313,7 +406,7 @@ def main(argv: Optional[Sequence[str]] = None):
               flush=True)
 
     old_handler = signal.signal(signal.SIGTERM, on_term)
-    logger = Logger(os.path.join(run_dir, "log.txt"))
+    logger = Logger(os.path.join(run_dir, "log.txt")) if chief else None
     try:
         return training_loop(
             run_dir=run_dir, data=opts.data, gcfg=gcfg,
@@ -326,9 +419,10 @@ def main(argv: Optional[Sequence[str]] = None):
             device_feed=opts.device_feed, max_steps=opts.max_steps, aug=opts.aug,
             aug_p=opts.aug_p, aug_geom=opts.aug_geom, ada_target=opts.ada_target,
             ema_rampup=0.05, ada_kimg=500.0, abort_fn=lambda: term["requested"], device=device,
-            metrics_fn=metrics_fn, metric_ticks=opts.metric_ticks)
+            metrics_fn=metrics_fn, metric_ticks=opts.metric_ticks, load_patches=opts.load_patches)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
         signal.signal(signal.SIGTERM, old_handler)
 
 

@@ -24,6 +24,14 @@ The lazy regularizers: ``g_pl_loss`` (path-length penalty on the
 z -> bbox Jacobian, a double backward through G) and ``d_r1_loss`` (the
 gradient penalty on D's logits w.r.t. the bbox input, a double backward
 through D's critics at ``reconst=False``, which never reach ``bias_act``).
+
+Data parallelism (``parallel.distributed``): JAX's SPMD step divides each
+masked mean by the global batch's count of valid entries, and a rank
+holds a share of that batch with counts of its own. ``_dp_shares``
+scales this rank's masked means (the elements' and the text tokens') so
+that the ranks' average of the losses, and of their gradients, is the
+global mean; the plain ``.mean()`` terms are over equal shares and stay.
+The path-length running mean moves by the mean over every rank.
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ from layoutdetr_tpu_torch.metrics.layout_metrics import (
     masked_cross_entropy,
     masked_mse,
 )
+from layoutdetr_tpu_torch.models.generator import text_reconstruction_tokens
+from layoutdetr_tpu_torch.parallel import distributed
 from layoutdetr_tpu_torch.training.augment import (
     CONDITIONAL_SAFE,
     AugmentConfig,
@@ -104,6 +114,20 @@ def _augmented(inputs: dict, batch: dict, generator: Optional[torch.Generator],
     return dict(inputs, background=apply_augment(bg, params, cfg))
 
 
+def _dp_shares(batch: dict, pad_token_id: int):
+    """(elements, tokens): the factors of this rank's masked means over the
+    valid elements and over the text decoder's target tokens that make
+    their average over the data ranks the global batch's means
+    (``distributed.global_shares``); 1.0 and 1.0 in a process alone."""
+    if distributed.grid() is None:
+        return 1.0, 1.0
+    valid = batch["mask"]
+    counts = torch.stack([valid.sum(), text_reconstruction_tokens(batch["text_ids"], valid,
+                                                                  pad_token_id)])
+    elements, tokens = distributed.global_shares(counts.float())
+    return elements, tokens
+
+
 def g_main_loss(G, D, batch, z, w: LossWeights, deterministic: bool = False,
                 generator: Optional[torch.Generator] = None,
                 aug_cfg: Optional[AugmentConfig] = None) -> Tuple[torch.Tensor, dict]:
@@ -112,6 +136,7 @@ def g_main_loss(G, D, batch, z, w: LossWeights, deterministic: bool = False,
     gen_g = None if deterministic else fork_generator(generator, dev)
     gen_d = None if deterministic else fork_generator(generator, dev)
     valid = batch["mask"]
+    share, token_share = _dp_shares(batch, G.cfg.pad_token_id)
     bbox_fake, loss_z, logit_cls, loss_lm, loss_text_len = G(
         z, bbox_real=batch["bboxes"], reconst=True, deterministic=deterministic,
         generator=gen_g, **_model_inputs(batch, "text_feat_g"))
@@ -121,14 +146,17 @@ def g_main_loss(G, D, batch, z, w: LossWeights, deterministic: bool = False,
 
     loss_Ggen = F.softplus(-gen_logits).mean()
     loss_Ggen_uncond = F.softplus(-gen_logits_uncond).mean()
-    loss_bbox_rec = masked_mse(bbox_fake, batch["bboxes"], valid) * w.Ggen_bbox_rec_weight
-    loss_giou = generalized_iou_loss(bbox_fake, batch["bboxes"], valid) * w.Ggen_bbox_gIoU_weight
+    loss_bbox_rec = (masked_mse(bbox_fake, batch["bboxes"], valid)
+                     * (w.Ggen_bbox_rec_weight * share))
+    loss_giou = (generalized_iou_loss(bbox_fake, batch["bboxes"], valid)
+                 * (w.Ggen_bbox_gIoU_weight * share))
     loss_overlap = compute_overlap(bbox_fake, valid).mean() * w.Ggen_overlapping_weight
     loss_align = compute_alignment(bbox_fake, valid).mean() * w.Ggen_alignment_weight
-    loss_z_rec = loss_z * w.Ggen_z_rec_weight
-    loss_cls = masked_cross_entropy(logit_cls, batch["labels"], valid) * w.Ggen_bbox_cls_weight
-    loss_text = loss_lm * w.Ggen_text_rec_weight
-    loss_tlen = loss_text_len * w.Ggen_text_len_rec_weight
+    loss_z_rec = loss_z * (w.Ggen_z_rec_weight * share)
+    loss_cls = (masked_cross_entropy(logit_cls, batch["labels"], valid)
+                * (w.Ggen_bbox_cls_weight * share))
+    loss_text = loss_lm * (w.Ggen_text_rec_weight * token_share)
+    loss_tlen = loss_text_len * (w.Ggen_text_len_rec_weight * share)
 
     total = (loss_Ggen + loss_Ggen_uncond + loss_bbox_rec + loss_giou + loss_overlap
              + loss_align + loss_z_rec + loss_cls + loss_text + loss_tlen)
@@ -157,6 +185,7 @@ def d_main_loss(G, D, batch, z, w: LossWeights, deterministic: bool = False,
     gen_g, gen_dfake, gen_dreal = (None if deterministic else fork_generator(generator, dev)
                                    for _ in range(3))
     valid = batch["mask"]
+    share, token_share = _dp_shares(batch, D.cfg.pad_token_id)
     with torch.no_grad():  # Dgen: fakes from a frozen G
         bbox_fake = G(z, bbox_real=batch["bboxes"], reconst=False, deterministic=deterministic,
                       generator=gen_g, **_model_inputs(batch, "text_feat_g"))
@@ -174,14 +203,17 @@ def d_main_loss(G, D, batch, z, w: LossWeights, deterministic: bool = False,
         **_augmented(d_inputs, batch, generator, aug_cfg))
     loss_Dreal = F.softplus(-real_logits).mean()
     loss_Dreal_uncond = F.softplus(-real_logits_uncond).mean()
-    loss_bbox_rec = masked_mse(bbox_rec, batch["bboxes"], valid) * w.Dreal_bbox_rec_weight
-    loss_cls = masked_cross_entropy(bbox_cls_logits, batch["labels"], valid) * w.Dreal_bbox_cls_weight
-    loss_text = loss_lm * w.Dreal_text_rec_weight
-    loss_tlen = loss_text_len * w.Dreal_text_len_rec_weight
+    loss_bbox_rec = (masked_mse(bbox_rec, batch["bboxes"], valid)
+                     * (w.Dreal_bbox_rec_weight * share))
+    loss_cls = (masked_cross_entropy(bbox_cls_logits, batch["labels"], valid)
+                * (w.Dreal_bbox_cls_weight * share))
+    loss_text = loss_lm * (w.Dreal_text_rec_weight * token_share)
+    loss_tlen = loss_text_len * (w.Dreal_text_len_rec_weight * share)
     loss_bg = ((bg_rec - batch["background"]) ** 2).mean() * w.Dreal_im_rec_weight
-    loss_bbox_rec_u = masked_mse(bbox_rec_uncond, batch["bboxes"], valid) * w.Dreal_bbox_rec_weight
+    loss_bbox_rec_u = (masked_mse(bbox_rec_uncond, batch["bboxes"], valid)
+                       * (w.Dreal_bbox_rec_weight * share))
     loss_cls_u = (masked_cross_entropy(bbox_cls_logits_uncond, batch["labels"], valid)
-                  * w.Dreal_bbox_cls_weight)
+                  * (w.Dreal_bbox_cls_weight * share))
 
     total = (loss_Dgen + loss_Dgen_uncond + loss_Dreal + loss_Dreal_uncond + loss_bbox_rec
              + loss_cls + loss_text + loss_tlen + loss_bg + loss_bbox_rec_u + loss_cls_u)
@@ -211,7 +243,10 @@ def g_pl_loss(G, batch, w: LossWeights, pl_mean: torch.Tensor, z: Optional[torch
               pl_batch_shrink: int = 2) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """Gpl, the path-length penalty on the z -> bbox Jacobian (loss.py:225-250;
     reference loss.py:119-142), on the first b / ``pl_batch_shrink``
-    samples, deterministic. ``z`` ([>= shrink, N, z_dim]) and ``pl_noise``
+    samples (of this rank's batch: the reference's per-rank shrink, where
+    JAX's SPMD takes the global batch's first half), deterministic; the
+    running mean moves by the lengths' mean over all ranks.
+    ``z`` ([>= shrink, N, z_dim]) and ``pl_noise``
     (standard normal, [shrink, N, 4]) are drawn from ``generator`` when not
     given. ``text_feature_fn`` (``make_text_feature_fn`` of G's frozen
     encoder) computes the shrunk batch's text features once, without
@@ -235,7 +270,8 @@ def g_pl_loss(G, batch, w: LossWeights, pl_mean: torch.Tensor, z: Optional[torch
     pl_noise = pl_noise / bbox_fake.shape[2]
     (pl_grads,) = torch.autograd.grad((bbox_fake * pl_noise).sum(), z_s, create_graph=True)
     pl_lengths = pl_grads.square().sum(dim=(1, 2)).sqrt()
-    new_pl_mean = pl_mean + pl_decay * (pl_lengths.mean() - pl_mean)
+    # the mean over every rank's samples, so pl_mean stays one value
+    new_pl_mean = pl_mean + pl_decay * (distributed.data_mean(pl_lengths.mean()) - pl_mean)
     pl_penalty = (pl_lengths - new_pl_mean).square()
     loss = (pl_penalty * w.pl_weight).mean()
     return loss, new_pl_mean.detach(), {"Loss/pl_penalty": pl_penalty.mean().detach(),

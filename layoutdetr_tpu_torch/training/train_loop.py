@@ -33,10 +33,33 @@ CUDA events recorded before and after each step (the host clock on the
 CPU), is written to ``stats.jsonl`` as ``main_step_s`` and
 ``reg_step_s``. On a host-bound step that span is mostly the card
 waiting on the host, not the card's busy time.
+
+Several ranks (a grid of ``parallel.distributed``, made by the caller,
+e.g. ``train.main --chips N``): the counterpart of JAX's SPMD loop
+(train_loop.py:226-255, 446-447, 607-625):
+
+- each data-parallel rank draws its share of the global batch
+  (``batch_size // dp_size``; it must divide) from its own sampler stream
+  (``InfiniteSampler(rank=dp_rank, num_replicas=dp_size)``), through its
+  own device cache or loader on its own card, with its own generator
+  (``rank_seed``); the ranks of one model group share all of that;
+- G and D start from rank 0's weights (broadcast), then tensor
+  parallelism shards them (``tensor_parallel.shard_module_``) and a
+  resume restores each rank's slices;
+- ADA's p moves by the sign of D's real logits averaged over the ranks,
+  so p is one value; ``cur_nimg`` counts the global batch; the
+  collector sums every rank's stats at a tick;
+- rank 0 alone prints and writes ``stats.jsonl``, TensorBoard, the image
+  and network snapshots (with the full tensors of a TP run, see
+  ``utils.checkpoint``) and runs the metrics, on a full copy of G_ema
+  under TP; before every network snapshot ``check_replica_consistency``
+  holds every replicated tensor equal on all ranks;
+- SIGTERM on any rank ends the run at the tick on all of them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import resource
 import sys
@@ -57,6 +80,8 @@ from layoutdetr_tpu_torch.data.dataset import (
 from layoutdetr_tpu_torch.data.device_cache import DeviceDatasetCache, gather_batch, should_enable
 from layoutdetr_tpu_torch.models.discriminator import Discriminator
 from layoutdetr_tpu_torch.models.generator import Generator
+from layoutdetr_tpu_torch.parallel import distributed
+from layoutdetr_tpu_torch.parallel import tensor_parallel as tp
 from layoutdetr_tpu_torch.training.augment import AdaController, AugmentConfig
 from layoutdetr_tpu_torch.training.loss import LossWeights
 from layoutdetr_tpu_torch.training.optimizers import build_optimizer
@@ -74,6 +99,7 @@ from layoutdetr_tpu_torch.utils.checkpoint import (
     write_gcfg,
 )
 from layoutdetr_tpu_torch.utils.logging import StatsJsonlWriter, TensorboardWriter
+from layoutdetr_tpu_torch.utils.misc import check_replica_consistency
 from layoutdetr_tpu_torch.utils.stats import Collector
 
 
@@ -182,6 +208,19 @@ def init_models(gcfg: GeneratorConfig, device, dtype: torch.dtype = torch.float3
         return Generator(gcfg, dtype=dtype), Discriminator(gcfg, dtype=dtype)
 
 
+def _chief_view(state: GANTrainState) -> GANTrainState:
+    """The state rank 0 previews and evaluates: ``state`` itself, or under
+    tensor parallelism a copy whose G_ema holds the full tensors (the
+    gather is collective: every rank calls this)."""
+    shard = tp.model_shard()
+    if shard is None:
+        return state
+    full = tp.gather_state_dict(state.G_ema.state_dict(), *shard, distributed.grid().tp_group)
+    if not distributed.grid().is_chief:
+        return state
+    return dataclasses.replace(state, G_ema=tp.unsharded_copy(state.G_ema, full))
+
+
 def training_loop(
     run_dir: str = ".",
     data: str = "",
@@ -218,23 +257,39 @@ def training_loop(
     device="cuda",
     metrics_fn: Optional[Callable] = None,
     metric_ticks: int = 1,
+    load_patches: bool = False,
 ) -> GANTrainState:
-    """Run GAN training on ``device``; returns the final state.
-    ``metrics_fn(state, snapshot_path, cur_nimg)`` runs after a network
-    snapshot, on every ``metric_ticks``-th one and the last."""
+    """Run GAN training on ``device``; returns the final state (a rank's
+    state in a multi-rank run: its slices under tensor parallelism).
+    ``batch_size`` is the global batch and ``batch_gpu`` a rank's
+    microbatch. ``metrics_fn(state, snapshot_path, cur_nimg)`` runs after
+    a network snapshot, on every ``metric_ticks``-th one and the last, on
+    rank 0. ``load_patches`` decodes the elements' patches into every
+    host batch (they stay on the host: no loss reads them); it needs the
+    host loader. With a grid, ``device`` is the grid's."""
+    grid = distributed.grid()
     start_time = time.time()
-    device = torch.device(device)
+    device = grid.device if grid is not None else torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("training on cuda, but torch sees no CUDA device (pass device='cpu' "
                            "to train on the CPU)")
+    is_chief = grid is None or grid.is_chief
+    dp_rank, dp_size = (grid.dp_rank, grid.dp_size) if grid is not None else (0, 1)
+    if batch_size % dp_size:
+        raise ValueError(f"batch {batch_size} does not divide over {dp_size} data-parallel ranks")
+    local_batch = batch_size // dp_size
     if resume:
         ema_rampup = None
         ada_kimg = min(ada_kimg, 100.0)
+    if load_patches and device_feed in (True, "on"):
+        raise ValueError("device_feed='on' is incompatible with load_patches (patch pixels "
+                         "stay on the host)")
 
     dataset = LayoutDataset(data, background_size=gcfg.background_size,
-                            max_text_length=gcfg.max_text_length, text_len_clip=gcfg.text_len_table)
-    use_device_feed = should_enable(dataset, device_feed)
-    sampler = InfiniteSampler(len(dataset), seed=random_seed)
+                            max_text_length=gcfg.max_text_length, text_len_clip=gcfg.text_len_table,
+                            load_patches=load_patches)
+    use_device_feed = not load_patches and should_enable(dataset, device_feed)
+    sampler = InfiniteSampler(len(dataset), rank=dp_rank, num_replicas=dp_size, seed=random_seed)
     if use_device_feed:
         dcache = DeviceDatasetCache(dataset, device)
         sampler_it = iter(sampler)
@@ -245,14 +300,16 @@ def training_loop(
             cores = os.cpu_count() or 1
             num_workers = min(8, cores) if cores > 1 else 0
         feed_desc = (f"cache {'on' if dataset._cache is not None else 'off'}, "
-                     f"{num_workers} prefetch workers")
+                     f"{num_workers} prefetch workers"
+                     + (", patches decoded" if load_patches else ""))
     print(f"Dataset: {len(dataset)} samples, {dataset.num_bbox_labels} labels ({feed_desc})")
+    if grid is not None:
+        print(f"Ranks: {grid.world} = {dp_size} data x {grid.tp_size} model, "
+              f"{local_batch} samples a rank a step")
 
     G, D = init_models(gcfg, device, dtype, random_seed)
     opt_g = build_optimizer(G.train(), lr=glr, reg_interval=g_reg_interval)
     opt_d = build_optimizer(D.train(), lr=dlr, reg_interval=d_reg_interval)
-    if module_summary:
-        _module_summaries(G, D, dataset, device)
     for path, module, key in ((init_g, G, "G"), (init_d, D, "D")):
         if path:
             # converted reference weights index BERT by real WordPiece ids
@@ -263,6 +320,13 @@ def training_loop(
         # G's and D's frozen encoders start from the same pretrained BERT in
         # the reference (networks_detr.py:92, :226): a fresh init copies G's
         D.text_encoder.load_state_dict(G.text_encoder.state_dict())
+    if grid is not None:  # rank 0's weights everywhere (training_loop.py:176-179)
+        distributed.broadcast_module_(G)
+        distributed.broadcast_module_(D)
+        tp.shard_module_(G, grid.tp_rank, grid.tp_size)
+        tp.shard_module_(D, grid.tp_rank, grid.tp_size)
+    if module_summary:
+        _module_summaries(G, D, dataset, device)
 
     state = GANTrainState.create(G, D, opt_g, opt_d)
     if resume:
@@ -272,10 +336,10 @@ def training_loop(
     print(f"Text-encoder sharing: {'ON (identical frozen weights)' if share_te else 'off'}")
 
     grad_accum = 1
-    if batch_gpu is not None and batch_gpu < batch_size:
-        if batch_size % batch_gpu:
-            raise ValueError("--batch-gpu must divide the batch")
-        grad_accum = batch_size // batch_gpu
+    if batch_gpu is not None and batch_gpu < local_batch:
+        if local_batch % batch_gpu:
+            raise ValueError("--batch-gpu must divide a rank's batch")
+        grad_accum = local_batch // batch_gpu
     step_fn = make_train_step(loss_weights, batch_size, ema_rampup=ema_rampup, z_dim=gcfg.z_dim,
                               max_elements=gcfg.max_elements, grad_accum=grad_accum,
                               aug_cfg=AugmentConfig() if aug_geom else None,
@@ -289,12 +353,12 @@ def training_loop(
 
     loader = None
     if not use_device_feed:
-        loader = PrefetchLoader(dataset, batch_size, sampler, num_workers=num_workers)
+        loader = PrefetchLoader(dataset, local_batch, sampler, num_workers=num_workers)
     collector = Collector()
-    jsonl = StatsJsonlWriter(os.path.join(run_dir, "stats.jsonl"))
-    tb = TensorboardWriter(run_dir)
+    jsonl = StatsJsonlWriter(os.path.join(run_dir, "stats.jsonl")) if is_chief else None
+    tb = TensorboardWriter(run_dir) if is_chief else None
     clock = _StepClock(device)
-    generator = torch.Generator().manual_seed(random_seed)
+    generator = torch.Generator().manual_seed(distributed.rank_seed(random_seed, dp_rank))
 
     cur_nimg = resume_kimg * 1000
     cur_tick = 0
@@ -314,6 +378,7 @@ def training_loop(
         cur_aug_p = aug_p
     pending: list = []
     stats_fetch_every = ada.interval if ada is not None else 16
+    world = grid.world if grid is not None else 1
 
     def drain():
         if not pending:
@@ -327,10 +392,12 @@ def training_loop(
     try:
         while True:
             if use_device_feed:
-                idx = dcache.put_indices([next(sampler_it) for _ in range(batch_size)])
+                idx = dcache.put_indices([next(sampler_it) for _ in range(local_batch)])
                 batch = gather_batch(dcache.arrays, idx)
             else:
-                batch = to_device(next(loader), device)
+                host = next(loader)
+                host.pop("patches_orig", None)  # decoded, never read by a loss
+                batch = to_device(host, device)
             if aug != "noaug":
                 batch["aug_p"] = cur_aug_p
             t0 = clock.mark()
@@ -346,7 +413,9 @@ def training_loop(
             if len(pending) >= stats_fetch_every:
                 drain()
             if ada is not None and batch_idx % ada.interval == 0 and ada_signs:
-                cur_aug_p = ada.update(batch_idx, batch_size, float(np.mean(ada_signs)))
+                # the mean over every rank: one p everywhere
+                (sign,) = distributed.all_reduce_host([float(np.mean(ada_signs))])
+                cur_aug_p = ada.update(batch_idx, batch_size, sign / world)
                 ada_signs.clear()
             cur_nimg += batch_size
             batch_idx += 1
@@ -377,28 +446,42 @@ def training_loop(
             if ada is not None:
                 extra["ada_updates"] = ada.updates
             print(" ".join(fields))
-            jsonl.write(collector.as_dict(), extra=extra)
-            for name in collector.names():
-                tb.scalar(name, collector.mean(name), cur_nimg)
-            if aug != "noaug":
-                tb.scalar("Progress/augment", cur_aug_p, cur_nimg)
-            tb.flush()
+            if is_chief:
+                jsonl.write(collector.as_dict(), extra=extra)
+                for name in collector.names():
+                    tb.scalar(name, collector.mean(name), cur_nimg)
+                if aug != "noaug":
+                    tb.scalar("Progress/augment", cur_aug_p, cur_nimg)
+                tb.flush()
 
-            if progress_fn is not None:
+            if progress_fn is not None and is_chief:
                 progress_fn(cur_nimg // 1000, total_kimg)
-            if abort_fn is not None and abort_fn():
-                done = True
-            if image_snapshot_ticks is not None and (done or cur_tick % image_snapshot_ticks == 0):
-                _save_image_snapshot(run_dir, state, dataset, cur_nimg, device)
-            if network_snapshot_ticks is not None and (done or cur_tick % network_snapshot_ticks == 0):
+            abort = abort_fn is not None and abort_fn()
+            if grid is not None:  # a signal to any rank ends every rank's run
+                abort = distributed.all_reduce_host([float(abort)], op="max")[0] > 0
+            done = done or abort
+            image_tick = image_snapshot_ticks is not None and (
+                done or cur_tick % image_snapshot_ticks == 0)
+            network_tick = network_snapshot_ticks is not None and (
+                done or cur_tick % network_snapshot_ticks == 0)
+            view = _chief_view(state) if image_tick or network_tick else state
+            if image_tick and is_chief:
+                _save_image_snapshot(run_dir, view, dataset, cur_nimg, device)
+            if network_tick:
+                if grid is not None and grid.world > 1:
+                    # the reference's check_ddp_consistency before every
+                    # pickle (training_loop.py:402-405; JAX's :612-625)
+                    check_replica_consistency({"G": state.G, "D": state.D, "G_ema": state.G_ema})
                 snap_path = os.path.join(run_dir, f"network-snapshot-{cur_nimg // 1000:06d}.pt")
                 save_checkpoint(snap_path, state)
-                write_gcfg(snap_path, gcfg)
-                # synchronous, as the reference's (training_loop.py:413-427),
-                # in the tick's maintenance: outside the sec/kimg clock
-                if metrics_fn is not None and (done or snap_count % metric_ticks == 0):
-                    metrics_fn(state, snap_path, cur_nimg)
+                if is_chief:
+                    write_gcfg(snap_path, gcfg)
+                    # synchronous, as the reference's (training_loop.py:413-427),
+                    # in the tick's maintenance: outside the sec/kimg clock
+                    if metrics_fn is not None and (done or snap_count % metric_ticks == 0):
+                        metrics_fn(view, snap_path, cur_nimg)
                 snap_count += 1
+            del view
 
             cur_tick += 1
             tick_start_nimg = cur_nimg
@@ -409,6 +492,7 @@ def training_loop(
     finally:
         if loader is not None:
             loader.close()
-        tb.close()
+        if tb is not None:
+            tb.close()
     print("Training done.")
     return state

@@ -25,6 +25,15 @@ Each part runs inside a ``torch.profiler.record_function`` range named
 profiled step shows where its time goes; outside a profiler a range
 costs a few microseconds of host time.
 
+Data parallelism (``parallel.distributed``): each rank runs the step on
+its share of the global batch, with its own generator; each phase's
+gradients are averaged over the ranks (``average_gradients``: over the
+data ranks, and a model group's copies of a replicated one kept equal)
+between the backward and Adam, in the main and the reg steps, so every
+rank applies the global gradient. ``batch_size`` is the global batch (the EMA
+half-life counts it). Under tensor parallelism the sharded layers carry
+their own collectives (``parallel.tensor_parallel``).
+
 ``grad_accum`` > 1 splits each phase's batch into microbatches and
 averages their gradients. The state is updated in place (the modules and
 optimizers are the state), where JAX returns a new state; the step
@@ -61,6 +70,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from layoutdetr_tpu_torch.models.generator import make_text_feature_fn
+from layoutdetr_tpu_torch.parallel.distributed import average_gradients
 from layoutdetr_tpu_torch.training.augment import AugmentConfig
 from layoutdetr_tpu_torch.training.loss import (
     LossWeights,
@@ -134,6 +144,8 @@ def _accum_phase(loss_fn: Callable, params: list, batch: Dict[str, torch.Tensor]
 
 
 def _apply(opt: torch.optim.Optimizer, params: list, grads: list) -> None:
+    """The DP average of ``grads``, sanitized, into ``opt``'s step."""
+    average_gradients(grads, params)
     _sanitize(grads)
     for p, g in zip(params, grads):
         p.grad = g

@@ -7,6 +7,12 @@ Counterpart of ``layoutdetr_tpu/utils/checkpoint.py``. A snapshot is one
 beside it as ``<snapshot>.gcfg.json``. Files are read with
 ``weights_only=True``: loading runs no pickled code.
 
+Several ranks (``parallel.distributed``): rank 0 writes the snapshot. A
+snapshot of a tensor-parallel state holds the full tensors, gathered over
+the model group (every rank takes part), so it loads into any layout and
+into ``generate`` / ``evaluate``; a restore into a sharded state loads
+each rank's slices.
+
 ``load_generator_checkpoint`` reads the three forms a ``--ckpt`` may
 take: a training snapshot (its G_ema), a ``generate.save_generator`` file
 (``<ckpt>.json`` beside it) and a reference ``.pkl`` snapshot (through the
@@ -23,23 +29,43 @@ from typing import Dict, Union
 import torch
 
 from layoutdetr_tpu_torch.config import GeneratorConfig
+from layoutdetr_tpu_torch.parallel import distributed
+from layoutdetr_tpu_torch.parallel import tensor_parallel as tp
 
 SNAPSHOT_KEYS = ("G", "D", "G_ema", "opt_g", "opt_d", "step", "pl_mean")
 
 
 def snapshot_of(state) -> dict:
-    """The snapshot dict of a ``GANTrainState`` (tensors as they are)."""
-    return dict(G=state.G.state_dict(), D=state.D.state_dict(), G_ema=state.G_ema.state_dict(),
+    """The snapshot dict of a ``GANTrainState``: tensors as they are, or,
+    for a tensor-parallel state, the full tensors (collective over the
+    model group)."""
+    shard = tp.model_shard()
+    snap = dict(G=state.G.state_dict(), D=state.D.state_dict(), G_ema=state.G_ema.state_dict(),
                 opt_g=state.opt_g.state_dict(), opt_d=state.opt_d.state_dict(),
                 step=int(state.step), pl_mean=state.pl_mean)
+    if shard is None:
+        return snap
+    group = distributed.grid().tp_group
+    for key in ("G", "D", "G_ema"):
+        snap[key] = tp.gather_state_dict(snap[key], *shard, group)
+    for key, module in (("opt_g", state.G), ("opt_d", state.D)):
+        snap[key] = tp.gather_optimizer_state_dict(snap[key], tp.trainable_names(module), *shard,
+                                                   group)
+    return snap
 
 
 def save_checkpoint(path: str, state) -> None:
     """Write ``state``'s snapshot to ``path`` (through a temporary file, so a
-    reader never sees half a snapshot)."""
-    tmp = path + ".tmp"
-    torch.save(snapshot_of(state), tmp)
-    os.replace(tmp, path)
+    reader never sees half a snapshot); with several ranks every rank
+    calls it and rank 0 writes."""
+    snap = snapshot_of(state)
+    g = distributed.grid()
+    if g is None or g.is_chief:
+        tmp = path + ".tmp"
+        torch.save(snap, tmp)
+        os.replace(tmp, path)
+    if g is not None:  # a barrier: no rank reads the path before it is written
+        distributed.all_reduce_host([0.0])
 
 
 def load_snapshot(path: str) -> dict:
@@ -52,8 +78,16 @@ def load_snapshot(path: str) -> dict:
 
 def restore_checkpoint(path: str, state):
     """Load the snapshot at ``path`` into ``state`` (modules, optimizers,
-    step and pl_mean, on their devices); returns ``state``."""
+    step and pl_mean, on their devices; a tensor-parallel state takes its
+    rank's slices); returns ``state``."""
     snap = load_snapshot(path)
+    shard = tp.model_shard()
+    if shard is not None:
+        for key in ("G", "D", "G_ema"):
+            snap[key] = tp.shard_state_dict(snap[key], *shard)
+        for key, module in (("opt_g", state.G), ("opt_d", state.D)):
+            snap[key] = tp.shard_optimizer_state_dict(snap[key], tp.trainable_names(module),
+                                                      *shard)
     for key in ("G", "D", "G_ema"):
         getattr(state, key).load_state_dict(snap[key], strict=True)
     state.opt_g.load_state_dict(snap["opt_g"])

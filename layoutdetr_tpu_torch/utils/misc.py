@@ -4,15 +4,20 @@ Counterparts of ``layoutdetr_tpu/utils/misc.py`` (reference
 torch_utils/misc.py): ``print_module_summary`` (the reference's startup
 table of every submodule's parameters and output shapes, misc.py:199-267,
 here from forward hooks over one forward), ``nan_guard`` and
-``enable_stack_dumps``. The replica check waits for multi-GPU.
+``enable_stack_dumps`` and ``check_replica_consistency`` (the training
+loop's check before a network snapshot of a multi-rank run).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from layoutdetr_tpu_torch.parallel import distributed
+from layoutdetr_tpu_torch.parallel.tensor_parallel import tp_dim
 
 
 def _shapes(out) -> list:
@@ -65,6 +70,48 @@ def nan_guard(tensors: Dict[str, torch.Tensor], where: str = "") -> None:
     for name, t in tensors.items():
         if not torch.isfinite(t).all():
             raise FloatingPointError(f"non-finite values at {where}{name}")
+
+
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+@torch.no_grad()
+def check_replica_consistency(tree: Mapping[str, object]) -> None:
+    """Raise ``AssertionError("Replica mismatch at <name>")`` unless every
+    replicated tensor of ``tree`` (name -> module or state dict) is equal
+    bit for bit on every rank: the counterpart of
+    layoutdetr_tpu/utils/misc.py:45-66 (reference misc.py:183-194
+    check_ddp_consistency). Rank 0's values are broadcast in flat buckets
+    and each rank compares its own bits; the mismatches are summed over
+    the ranks, so every rank raises on the same name. Tensors that tensor
+    parallelism shards (``tp_dim``, in a grid with a model axis) hold
+    different slices and are skipped. Collective; a no-op without a grid."""
+    g = distributed.grid()
+    if g is None:
+        return
+    names, tensors = [], []
+    for key, obj in tree.items():
+        sd = obj.state_dict() if isinstance(obj, nn.Module) else obj
+        for name, t in sd.items():
+            if g.tp_size > 1 and tp_dim(name) is not None:
+                continue
+            names.append(f"{key}/{name}")
+            # compare bits (NaN included) as integers of the element's width
+            tensors.append(t.detach().reshape(-1).view(_BITS[t.element_size()]))
+    flags = torch.zeros(len(names), device=g.device)
+    for idx in distributed.buckets(tensors):
+        mine = torch.cat([tensors[i].to(g.device) for i in idx])
+        ref = mine.clone()
+        dist.broadcast(ref, src=0)
+        offset = 0
+        for i in idx:
+            n = tensors[i].numel()
+            flags[i] = float(not torch.equal(mine[offset:offset + n], ref[offset:offset + n]))
+            offset += n
+    dist.all_reduce(flags)
+    bad = flags.nonzero()
+    if len(bad):
+        raise AssertionError(f"Replica mismatch at {names[int(bad[0])]}")
 
 
 def enable_stack_dumps() -> None:

@@ -3,8 +3,12 @@
 Counterpart of ``layoutdetr_tpu/utils/stats.py`` (reference
 torch_utils/training_stats.py): per-name [n, sum, sum of squares]
 accumulators and a ``Collector`` that gives mean and std since the last
-``update``. Numpy only: the training loop fetches a group of steps'
-stats from the card at once and reports host floats here. One process.
+``update``. The training loop fetches a group of steps' stats from the
+card at once and reports host floats here. With several ranks
+(``parallel.distributed``) ``update`` first sums the moments over every
+rank (JAX's ``_sync``, layoutdetr_tpu/utils/stats.py:56-66; reference
+training_stats.py:232-264), so every rank sees the mean over all of them;
+every rank calls it, with the same names.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ import re
 from typing import Dict, Iterable, Mapping
 
 import numpy as np
+
+from layoutdetr_tpu_torch.parallel.distributed import all_reduce_host
 
 
 class Collector:
@@ -41,13 +47,22 @@ class Collector:
 
     def update(self) -> None:
         """Snapshot the deltas since the previous update (training_stats.py:166-183)."""
-        for name, m in self._moments.items():
-            self._cumulative[name] = self._cumulative.get(name, np.zeros(3)) + m
-        self._moments = {}
+        self._sync()
         for name, total in self._cumulative.items():
             prev = self._deltas.get(name + "/_prev", np.zeros(3))
             self._deltas[name] = total - prev
             self._deltas[name + "/_prev"] = total.copy()
+
+    def _sync(self) -> None:
+        """The pending moments, summed over the ranks, into the totals."""
+        names = sorted(self._moments)
+        if not names:
+            return
+        flat = all_reduce_host([v for n in names for v in self._moments[n]])
+        for i, name in enumerate(names):
+            m = np.array(flat[3 * i:3 * i + 3], np.float64)
+            self._cumulative[name] = self._cumulative.get(name, np.zeros(3)) + m
+        self._moments = {}
 
     def names(self) -> Iterable[str]:
         return [n for n in self._deltas if not n.endswith("/_prev")]

@@ -281,7 +281,7 @@ def test_params_structure_matches_the_c_struct():
             got.append((fname, base, count))
         want = [(n, ctypes_of[t], c) for n, t, c in fields]
         assert got == want, name
-    assert ctypes.sizeof(attention._Params) == 424
+    assert ctypes.sizeof(attention._Params) == 432
 
 
 # ---------------------------------------------------------------------------
@@ -359,3 +359,43 @@ def test_params_size_matches_the_library_on_card():
     attention._lib()  # raises if the sizes differ
     assert _build.load("attention").layoutdetr_attention_params_size() == ctypes.sizeof(
         attention._Params)
+
+
+def _heads_share(device, dtype, t):
+    """The whole-head dropout pass and two TP ranks' passes over heads
+    [0, 2) and [2, 4) of 4 (``head_offset``, ``total_heads``)."""
+    g = torch.Generator(device=device).manual_seed(t)
+    q, k, v = (torch.randn(6, 4, t, 192, device=device, generator=g).to(dtype) for _ in range(3))
+    bias = torch.zeros(6, t, device=device)
+    run = lambda sl, **kw: attention.fused_attention(
+        q[:, sl], k[:, sl], v[:, sl], bias, scale=192 ** -0.5, dropout_rate=0.1, seed=9, **kw)
+    whole = run(slice(0, 4))
+    parts = [run(slice(o, o + 2), head_offset=o, total_heads=4) for o in (0, 2)]
+    return whole, parts
+
+
+@pytest.mark.parametrize("t", [16, 65])
+def test_dropout_of_a_tp_rank_heads_is_the_whole_pass_slice(t):
+    """A rank that holds heads [o, o + 2) of 4 keys its mask by the global
+    head, so it drops what one pass over all heads drops there."""
+    whole, parts = _heads_share("cpu", torch.float32, t)
+    for o, part in zip((0, 2), parts):
+        assert torch.equal(part, whole[:, o:o + 2])
+    with pytest.raises(ValueError, match="do not lie in"):
+        attention.make_plan(*(attention.Spec((1, 2, 8, 192), (3072, 1536, 192, 1),
+                                             torch.float32),) * 4,
+                            attention.Spec((1, 8), (8, 1), torch.float32), 1.0, 0.1,
+                            head_offset=3, total_heads=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [16, 65, 256])
+def test_dropout_of_a_tp_rank_heads_is_the_whole_pass_slice_on_card(dtype, t):
+    """The same on the card, both bodies: bit for bit (each (sequence,
+    head) is computed alone, in the same order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    whole, parts = _heads_share("cuda", dtype, t)
+    for o, part in zip((0, 2), parts):
+        assert torch.equal(part, whole[:, o:o + 2])

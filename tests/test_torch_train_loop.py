@@ -156,10 +156,10 @@ def test_cli_options_match_the_jax_cli():
 
 @pytest.mark.parametrize("argv, message", [
     (["--metrics", "fid50k"], "unknown metric fid50k"),
-    (["--chips", "2"], "item 19"),
-    (["--gpus", "4"], "item 19"),
-    (["--model-parallel", "2"], "item 19"),
-    (["--load-patches"], "not ported"),
+    (["--chips", "2", "--model-parallel", "3"], "--model-parallel 3 does not divide 2 ranks"),
+    (["--gpus", "3"], "--batch 2 does not divide over 3 data-parallel ranks"),
+    (["--model-parallel", "2"], "--model-parallel 2 does not divide 1 ranks"),
+    (["--load-patches", "--device-feed", "on"], "does not take --load-patches"),
     (["--max-text-length", "0"], "positive integer"),
 ])
 def test_cli_refuses_what_waits(argv, message, data, tmp_path, capsys):
@@ -167,6 +167,14 @@ def test_cli_refuses_what_waits(argv, message, data, tmp_path, capsys):
         port_train.main(["--outdir", str(tmp_path), "--data", data, "--batch", "2", "--device", "cpu",
                          *argv])
     assert message in capsys.readouterr().err
+
+
+def test_cli_refuses_more_cards_than_are_visible(data, tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit):
+        port_train.main(["--outdir", str(tmp_path), "--data", data, "--batch", "2", "--chips", "2"])
+    assert "--chips 2, but 1 CUDA device(s) are visible" in capsys.readouterr().err
 
 
 def test_cli_trains_the_vit_backbone_and_generate_reads_its_snapshot(data, tmp_path,
