@@ -30,7 +30,8 @@ Phases (any failure ends the run with a non-zero exit and no result):
 
 1. device: name and power limit (nvidia-smi);
 2. build: the CUDA kernels from the sources in this checkout (nvcc,
-   sm_90a), one nvcc per source, all started together, timed;
+   sm_90a) and the host decoder ``data/csrc/fastdata.cpp`` (g++), one
+   compiler per source, all started together, timed;
 3. kernels: each kernel vs its plain PyTorch version at the main paths'
    shapes, with its time, the plain version's, one PyTorch library call's
    and the card's bound:
@@ -180,6 +181,21 @@ Phases (any failure ends the run with a non-zero exit and no result):
    ``generate --ckpt`` from the snapshot; (d) one fp32 step through an
    NCCL group of one rank, equal bit for bit to the step without a group
    (cuDNN deterministic for both).
+16. the host data path (slice 8): a source tree of 16 banner pages
+   (PIL, 15 banner sizes up to 1024 px, 1-9 elements) through ``python -m
+   layoutdetr_tpu_torch.dataset_tool`` (made before phase 3, whose
+   attention shapes include this run's auto T; pages, zip bytes and
+   seconds printed); every background of its zips decoded by phase 2's
+   fastdata against PIL (decode exact, Lanczos to 256^2 within 1 level,
+   mean under 0.01); the ms a background (1024^2 -> 256^2) and
+   ``warm_cache`` seconds native and PIL on the host clock, with the
+   derived figure for the reference's 7,672 pages; then ``train.main
+   --device-feed off --batch 16 --bf16 --max-text-length auto`` for 4 steps
+   on the tool's train.zip, its host loader decoding natively (checked),
+   and one request served from its snapshot, with the launch counts set to
+   0 before the run and read after the request (12 + 48 + 48 a step, 12
+   deterministic a summary forward, image snapshot and request, 48 forward
+   in D's summary).
 
 The last three lines of standard output are the kernels JSON, the card
 (nvidia-smi name, power limit) and ``{"ok": true, "device": {...}}``.
@@ -2597,6 +2613,251 @@ def multi_gpu_phase(torch, np, args, card, attention, bias_act_mod, tmp: str, zi
     return rec
 
 
+# ---------------------------------------------------------------------------
+# 16. the host data path
+# ---------------------------------------------------------------------------
+
+HOST_PAGES, HOST_STEPS = 16, 4
+REFERENCE_PAGES = 7672  # the reference dataset's pages
+HOST_TIMING_PASSES = 3
+# banner sizes (w, h): IAB formats and square/social crops, sides <= 1024
+BANNER_FORMATS = ((300, 250), (336, 280), (728, 90), (970, 250), (160, 600), (300, 600),
+                  (320, 480), (480, 320), (640, 640), (800, 800), (1024, 512), (512, 1024),
+                  (1024, 1024), (600, 500), (960, 640))
+
+
+def banner_source(np, root: str, pages: int, seed: int) -> None:
+    """A source tree in the dataset tool's input layout:
+    ``png_json_gt/<name>.png`` + ``<name>.json`` and
+    ``1x_inpainted_background_png/<name>_inpainted.png``. Page i has size
+    BANNER_FORMATS[i % 15] and 1-9 elements, each a box with text in its
+    own cell of a 3 x 3 grid; the background is the page without them."""
+    import PIL.Image
+    import PIL.ImageDraw
+
+    rng = np.random.default_rng(seed)
+    gt = os.path.join(root, "png_json_gt")
+    bgd = os.path.join(root, "1x_inpainted_background_png")
+    os.makedirs(gt)
+    os.makedirs(bgd)
+    for i in range(pages):
+        w, h = BANNER_FORMATS[i % len(BANNER_FORMATS)]
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        bg = np.stack([60 + 150 * xx / w, 40 + 160 * yy / h, 200 - 120 * (xx + yy) / (w + h)], -1)
+        bg = (bg + rng.normal(0, 6, bg.shape)).clip(0, 255).astype(np.uint8)
+        page = PIL.Image.fromarray(bg)
+        draw = PIL.ImageDraw.Draw(page)
+        elements = []
+        cw, ch = w // 3, h // 3
+        for cell in rng.permutation(9)[:int(rng.integers(1, 10))].tolist():
+            x1 = (cell % 3) * cw + int(rng.integers(0, cw // 4 + 1))
+            y1 = (cell // 3) * ch + int(rng.integers(0, ch // 4 + 1))
+            x2 = x1 + max(4, int(cw * rng.uniform(0.5, 0.75)))
+            y2 = y1 + max(4, int(ch * rng.uniform(0.5, 0.75)))
+            color = tuple(int(v) for v in rng.integers(0, 256, 3))
+            draw.rectangle([x1, y1, x2 - 1, y2 - 1], fill=color)
+            text = " ".join(rng.choice(WORDS, int(rng.integers(1, 6))))
+            draw.text((x1 + 2, y1 + 1), text, fill=tuple(255 - c for c in color))
+            elements.append({"label": LABELS[int(rng.integers(0, len(LABELS)))], "str": text,
+                             "xyxy_word_fit": [x1, y1, x2, y2]})
+        name = f"page{i:06d}"
+        page.save(os.path.join(gt, name + ".png"), compress_level=1)
+        with open(os.path.join(gt, name + ".json"), "w") as f:
+            json.dump(elements, f)
+        PIL.Image.fromarray(bg).save(os.path.join(bgd, name + "_inpainted.png"), compress_level=1)
+
+
+def host_data_zips(np, tmp: str, seed: int, card: str) -> dict:
+    """Phase 16's dataset, made before phase 3 (its auto T sets the run's
+    attention shapes): HOST_PAGES banner pages through ``python -m
+    layoutdetr_tpu_torch.dataset_tool``, timed on the host clock."""
+    from layoutdetr_tpu_torch import dataset_tool
+    from layoutdetr_tpu_torch.data.dataset import LayoutDataset
+    from layoutdetr_tpu_torch.train import auto_text_length
+
+    src, dest = os.path.join(tmp, "banner_source"), os.path.join(tmp, "banner_zips")
+    t0 = time.perf_counter()
+    banner_source(np, src, HOST_PAGES, seed)
+    source_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_train, n_val = dataset_tool.main(["--source", src, "--dest", dest])
+    tool_s = time.perf_counter() - t0
+    zips = {name: os.path.join(dest, name) for name in ("train.zip", "val.zip")}
+    zip_bytes = {name: os.path.getsize(path) for name, path in zips.items()}
+    if n_train + n_val != HOST_PAGES or n_val < 1:
+        raise AssertionError(f"dataset tool kept {n_train} + {n_val} of {HOST_PAGES} pages")
+    measured = LayoutDataset(zips["train.zip"], cache=False, use_native=False
+                             ).measured_max_text_tokens()
+    rec = dict(pages=HOST_PAGES, train=n_train, val=n_val, zip_bytes=zip_bytes,
+               source_s=source_s, dataset_tool_s=tool_s, T=auto_text_length(measured),
+               train_zip=zips["train.zip"], val_zip=zips["val.zip"])
+    log(f"host data: {HOST_PAGES} banner pages written in {source_s:.2f} s; python -m "
+        f"layoutdetr_tpu_torch.dataset_tool: {n_train} train / {n_val} val pages, zips "
+        f"{zip_bytes['train.zip']} + {zip_bytes['val.zip']} bytes, {tool_s:.2f} s (host clock); "
+        f"--max-text-length auto -> T={rec['T']}  [{card}]")
+    return rec
+
+
+def build_fastdata() -> dict:
+    """The port's host decoder, ``data/csrc/fastdata.cpp``, built (g++) and
+    loaded; raises if it does not build."""
+    from layoutdetr_tpu_torch.data import native
+    from layoutdetr_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    path = native.library()._name
+    return dict(compiler=_build.host_compiler(), build_s=time.perf_counter() - t0, library=path)
+
+
+def backgrounds(zip_paths) -> list:
+    """Every ``_background_orig.png`` of the zips, as bytes."""
+    import zipfile
+
+    out = []
+    for path in zip_paths:
+        with zipfile.ZipFile(path) as zf:
+            out += [zf.read(n) for n in zf.namelist() if n.endswith("_background_orig.png")]
+    return out
+
+
+def host_data_phase(torch, np, args, card, attention, bias_act_mod, tmp: str, data: dict,
+                    fastdata: dict) -> dict:
+    """Slice 8's path on phase 16's zips: every background decoded by the
+    port's fastdata against PIL (decode exact, Lanczos to 256 within 1 level,
+    mean under 0.01), the ms a background and ``warm_cache`` both ways (host
+    clock), then ``train.main`` for HOST_STEPS steps through the host loader
+    with native decode (bf16, batch 16, auto T) and one request served from
+    its snapshot, with the launch counts set to 0 before the run and read
+    after the request."""
+    import io
+    import statistics
+
+    import PIL.Image
+
+    from layoutdetr_tpu_torch import generate
+    from layoutdetr_tpu_torch import train as train_cli
+    from layoutdetr_tpu_torch.config import GeneratorConfig
+    from layoutdetr_tpu_torch.data import native
+    from layoutdetr_tpu_torch.data.dataset import LayoutDataset
+    from layoutdetr_tpu_torch.training import train_loop
+
+    t_phase = time.perf_counter()
+    blobs = backgrounds((data["train_zip"], data["val_zip"]))
+    if len(blobs) != HOST_PAGES:
+        raise AssertionError(f"{len(blobs)} backgrounds in the zips, expected {HOST_PAGES}")
+    worst_max, worst_mean = 0, 0.0
+    for blob in blobs:
+        img = PIL.Image.open(io.BytesIO(blob))
+        dec = native.decode_png(blob)
+        if dec.shape != (1024, 1024, 3) or not np.array_equal(dec, np.array(img)):
+            raise AssertionError(f"native decode differs from PIL's ({dec.shape})")
+        diff = np.abs(native.resize_lanczos(dec, 256).astype(np.int32)
+                      - np.array(img.resize((256, 256), PIL.Image.LANCZOS)).astype(np.int32))
+        worst_max, worst_mean = max(worst_max, int(diff.max())), max(worst_mean, float(diff.mean()))
+    if worst_max > 1 or worst_mean >= 0.01:
+        raise AssertionError(f"native Lanczos vs PIL: max {worst_max}, mean {worst_mean}")
+    log(f"host data: {len(blobs)} backgrounds (1024^2 PNG), fastdata vs PIL: decode exact, "
+        f"Lanczos to 256^2 max {worst_max} level, worst mean {worst_mean:.5f}")
+
+    def ms_per_background(fn) -> float:
+        times = []
+        for _ in range(HOST_TIMING_PASSES):
+            for blob in blobs:
+                t0 = time.perf_counter()
+                fn(blob)
+                times.append(time.perf_counter() - t0)
+        return 1e3 * statistics.median(times)
+
+    native_ms = ms_per_background(lambda b: native.resize_lanczos(native.decode_png(b), 256))
+    fused_ms = ms_per_background(lambda b: native.load_background(b, 256))
+    pil_ms = ms_per_background(lambda b: np.array(
+        PIL.Image.open(io.BytesIO(b)).resize((256, 256), PIL.Image.LANCZOS)))
+    warm = {}
+    for name, flag in (("native", True), ("pil", False)):
+        ds = LayoutDataset(data["train_zip"], max_text_length=data["T"], cache=True,
+                           use_native=flag)
+        warm[name] = ds.warm_cache()
+        del ds
+    per_page = {k: v / data["train"] for k, v in warm.items()}
+    rec = dict(data, fastdata=fastdata, decode_exact=True, lanczos_max_level=worst_max,
+               lanczos_worst_mean=worst_mean, native_ms_per_background=native_ms,
+               native_fused_ms_per_background=fused_ms, pil_ms_per_background=pil_ms,
+               warm_cache_s=warm, warm_cache_s_per_page=per_page,
+               warm_cache_s_at_reference_pages={k: v * REFERENCE_PAGES for k, v in per_page.items()})
+    log(f"host data: ms a background (1024^2 PNG -> 256^2, median of {HOST_TIMING_PASSES} x "
+        f"{len(blobs)}, host clock): fastdata {native_ms:.2f} (fused with the normalise "
+        f"{fused_ms:.2f}), PIL {pil_ms:.2f}; warm_cache of {data['train']} pages "
+        f"{warm['native']:.3f} s native, {warm['pil']:.3f} s PIL; derived for the reference's "
+        f"{REFERENCE_PAGES} pages: {rec['warm_cache_s_at_reference_pages']['native']:.1f} s / "
+        f"{rec['warm_cache_s_at_reference_pages']['pil']:.1f} s  [{card}]")
+
+    # the training run on the tool's zip, native decode in its host loader
+    decoders: list = []
+    real_dataset = train_loop.LayoutDataset
+
+    class RecordedDataset(real_dataset):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            decoders.append(self.use_native)
+
+    out = os.path.join(tmp, "host_runs")
+    torch.cuda.synchronize()
+    zero_counters(attention, bias_act_mod)
+    t0 = time.perf_counter()
+    train_loop.LayoutDataset = RecordedDataset
+    try:
+        state = train_cli.main(["--outdir", out, "--data", data["train_zip"], "--batch",
+                                str(args.batch), "--bf16", "--max-text-length", "auto",
+                                "--device-feed", "off", "--metrics", "none", "--snap", "1",
+                                "--seed", str(args.seed), "--gpus", "1",
+                                "--max-steps", str(HOST_STEPS)])
+    finally:
+        train_loop.LayoutDataset = real_dataset
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if decoders != [True]:
+        raise AssertionError(f"the run's loader decoded natively: {decoders}")
+    run_dir = os.path.join(out, os.listdir(out)[0])
+    records, ticks = read_run(run_dir)
+    check_ticks(records, ticks, HOST_STEPS, "host-data run")
+    snap = os.path.join(run_dir, f"network-snapshot-{HOST_STEPS * args.batch // 1000:06d}.pt")
+    with open(snap + ".gcfg.json") as f:
+        t = GeneratorConfig.from_dict(json.load(f)).max_text_length
+    if state.step != HOST_STEPS or t != data["T"]:
+        raise AssertionError(f"host-data run: step {state.step}, T={t} (phase 3 checked "
+                             f"{data['T']})")
+    del state
+    torch.cuda.empty_cache()
+
+    # one request served from the snapshot's G_ema
+    bg = os.path.join(tmp, "host_bg.png")
+    with open(bg, "wb") as f:
+        f.write(blobs[0])
+    (layout,) = generate.main(["--ckpt", snap, "--bg", bg, "--strings", "summer sale|shop now",
+                               "--string-labels", "header|button", "--device", "cuda",
+                               "--outfile", os.path.join(tmp, "host_served", "banner")])
+    launches = counters(attention, bias_act_mod)
+    # 12 attention with dropout and 48 + 48 bias_act a main step; 12
+    # deterministic a module-summary forward (G, D), an image snapshot (one
+    # a tick) and the served request; 48 bias_act forward in D's summary
+    want = dict(fused_attention=12 * (2 + len(ticks) + 1), fused_attention_dropout=12 * HOST_STEPS,
+                bias_act=48 * HOST_STEPS + 48, bias_act_backward=48 * HOST_STEPS)
+    if launches != want:
+        raise AssertionError(f"host-data run: launches {launches}, expected {want}")
+    if not np.isfinite(layout.bbox).all() or not ((layout.raw > 0) & (layout.raw < 1)).all():
+        raise AssertionError(f"served from the host-data snapshot: {layout.raw}")
+    rec.update(steps=HOST_STEPS, ticks=len(ticks), run_s=run_s,
+               sec_per_kimg=records[-1]["sec_per_kimg"], launches=launches,
+               served_bbox=layout.bbox[layout.mask].tolist(),
+               phase_s=time.perf_counter() - t_phase)
+    log(f"host data: train.main --device-feed off --batch {args.batch} --bf16 T={t} (auto), "
+        f"{HOST_STEPS} steps, native decode in the host loader: {rec['sec_per_kimg']:.2f} sec/kimg "
+        f"(last tick), run {run_s:.1f} s; served from its snapshot: boxes "
+        f"{np.round(layout.bbox[layout.mask], 4).tolist()}; launches {launches} (as expected); "
+        f"phase {rec['phase_s']:.1f} s  [{card}]")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Run the port's main paths on one GPU.")
     ap.add_argument("--seed", type=int, default=0)
@@ -2648,15 +2909,20 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} | nvidia-smi: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # 2. build: one nvcc per source, started together
+    # 2. build: one compiler per source (nvcc for the kernels, g++ for the
+    # host decoder), started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        host_build = pool.submit(build_fastdata)
         libs = list(pool.map(_build.build, ("attention", "bias_act")))
-    build_s = time.perf_counter() - t0
+        build_s = time.perf_counter() - t0
+        fastdata = host_build.result()
     log(f"build attention.cu + bias_act.cu: {build_s:.2f} s")
-    for lib in libs:
+    for lib in libs + [fastdata["library"]]:
         with open(lib + ".log") as f:
             log(f.read().strip())
+    log(f"build data/csrc/fastdata.cpp ({fastdata['compiler']}, beside nvcc): "
+        f"{fastdata['build_s']:.2f} s -> {fastdata['library']}")
 
     # the training run's dataset, made first: its --max-text-length auto
     # bucket sets the run's attention shapes, which phase 3 checks
@@ -2664,10 +2930,12 @@ def main() -> int:
     zip_path, val_path, run_t = run_dataset(workdir.name, args.seed)
     log(f"training-run dataset: {RUN_SAMPLES} samples (and a val.zip of as many), "
         f"--max-text-length auto -> T={run_t}")
+    host_data = host_data_zips(np, workdir.name, args.seed, card)  # phase 16's
 
     # 3. kernels vs plain
     shapes = list(dict.fromkeys(serving_attention_shapes(args.batch)
                                 + run_attention_shapes(args.batch, run_t)
+                                + run_attention_shapes(args.batch, host_data["T"])
                                 + eval_attention_shapes(args.batch, run_t)
                                 + http_attention_shapes()
                                 + layoutganpp_attention_shapes(args.batch)
@@ -2829,13 +3097,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     multi = multi_gpu_phase(torch, np, args, card, attention, bias_act_mod, workdir.name, zip_path,
                             run_t, states_path)
+
+    # 16. the host data path, slice 8's: the dataset tool's zips, fastdata
+    torch.cuda.empty_cache()
+    host = host_data_phase(torch, np, args, card, attention, bias_act_mod, workdir.name,
+                           host_data, fastdata)
     workdir.cleanup()
 
     kernels = kernel_records(attn_cases, bias_cases, serve_launches, train, run, evaluation, http,
-                             bench_rec, vit, lgpp, enc_cases, multi, other_bias_cases)
+                             bench_rec, vit, lgpp, enc_cases, multi, other_bias_cases, host)
     log(json.dumps({"serving": serving, "train": train, "step_correctness": correctness,
                     "training_run": run, "evaluation": evaluation, "http_serving": http,
                     "bench": bench_rec, "vit": vit, "layoutganpp": lgpp, "multi_gpu": multi,
+                    "host_data": host,
                     "bias_act_encoder_cases": enc_cases,
                     "model_max_abs": err, "model_bf16_max_abs": err_bf16,
                     "model_bf16_vs_fp32_max_abs": err_bf16_fp32, "cpu_max_abs": err_cpu,
@@ -3119,7 +3393,7 @@ def largest_lrelu(cases: list) -> dict:
 
 def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run: dict,
                    evaluation: dict, http: dict, bench_rec: dict, vit: dict, lgpp: dict,
-                   enc_cases: list, multi: dict, other_bias_cases: list) -> list:
+                   enc_cases: list, multi: dict, other_bias_cases: list, host: dict) -> list:
     """The kernels line: each kernel at its representative case (fp32,
     T=256 for attention; one fp32 step's 48 bias_act calls summed), with
     the launches of each main path that runs it (``launches_by_path``) and
@@ -3130,8 +3404,9 @@ def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run
     evaluation, the HTTP server and the bench's --infer; the bench's train
     step runs the dropout form and both bias_act kernels; the ViT's serving,
     train step and training run with its evaluation, LayoutGAN++'s
-    forwards and D backward, and phase 15's ranks summed over the ranks,
-    each a path of its own). bias_act's record
+    forwards and D backward, phase 15's ranks summed over the ranks, and
+    phase 16's run with its served request, each a path of its own).
+    bias_act's record
     also sums one LayoutGAN++ bg_encoder forward's calls
     (``per_encoder_forward``) and holds the bg_decoder's cases at the
     paths' other batches (``other_batch_cases``: max_abs_err covers
@@ -3154,7 +3429,7 @@ def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run
         by_path[k]["bench_train"] = bench_rec["train"]["launches"][k]
     vit_paths = dict(vit_serving=vit["serving"]["launches"], vit_train_step=vit["train"][0]["launches"],
                      vit_training_run=vit["training_run"]["launches"], layoutganpp=lgpp["launches"],
-                     multi_gpu=multi["launches"])
+                     multi_gpu=multi["launches"], host_data=host["launches"])
     for path, launches in vit_paths.items():
         for k, n in launches.items():
             if n:

@@ -7,7 +7,7 @@ per-element PNGs), the same decode products and the same index stream:
 
 - ``LayoutDataset``: fixed-shape tokenized text (``text_ids``,
   ``text_mask``, ``text_len``), boxes, labels, validity mask and the
-  background resized with PIL LANCZOS and ImageNet-normalized, channels
+  background resized with Lanczos-3 and ImageNet-normalized, channels
   last. Decoded backgrounds and tokens are kept in a RAM cache
   (``warm_cache``) so a run decodes each PNG once. Patches and the
   full-resolution background are off by default (the losses never read
@@ -20,7 +20,10 @@ per-element PNGs), the same decode products and the same index stream:
   for any worker count. Workers return numpy and never touch CUDA; the
   main process copies a batch to the card (``to_device``).
 
-The JAX package's native C++ decoder is not ported: PIL decodes.
+The background decode takes the port's own C++ decoder (``data/native.py``
+over ``data/csrc/fastdata.cpp``, built into ``build/`` at first use) where
+it builds, as JAX's loader does, and PIL otherwise; the full-resolution
+background and the patches are decoded with PIL, as in JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from layoutdetr_tpu_torch.data import native
 from layoutdetr_tpu_torch.data.tokenizer import LayoutTokenizer
 
 MAX_ELEMENTS = 9  # dataset_tool.py:180 keeps layouts of <= 9 elements; the loader pads to 9
@@ -41,6 +45,32 @@ RGB_STD = np.array([0.229, 0.224, 0.225], np.float32).reshape(1, 1, 3)
 BATCH_KEYS = ("bboxes", "labels", "text_ids", "text_mask", "text_len", "mask", "padding_mask",
               "background")
 INDEX_KEYS = ("labels", "text_ids", "text_len")  # int64 in a batch on the device (embedding lookups)
+
+
+_decoder_told = False  # the first dataset to decide says which background decoder runs
+
+
+def _choose_decoder(use_native: Optional[bool], load_background_orig: bool) -> bool:
+    """``use_native`` resolved: None picks the native decoder when it builds
+    (and no full-resolution background is wanted, which PIL decodes in the
+    same pass); True demands it and raises if it does not build. The first
+    call in a process prints the choice and why."""
+    global _decoder_told
+    if use_native is None and load_background_orig:
+        use_native, why = False, "load_background_orig: PIL decodes the full-resolution background"
+    elif use_native is False:
+        why = "use_native=False"
+    else:
+        try:
+            why, use_native = native.library()._name, True
+        except RuntimeError as e:
+            if use_native:
+                raise
+            use_native, why = False, " ".join(str(e).split())[:300]
+    if not _decoder_told:
+        _decoder_told = True
+        print(f"Background decode: {'native fastdata' if use_native else 'PIL'} ({why})")
+    return use_native
 
 
 def normalize_image(arr: np.ndarray) -> np.ndarray:
@@ -60,19 +90,22 @@ class LayoutDataset:
     ``cache`` keeps the decode products (resized uint8 background and
     token arrays) in RAM by raw index; ``"auto"`` turns it on when the
     estimated footprint fits ``cache_gb`` (env ``LAYOUTDETR_CACHE_GB``,
-    default 8)."""
+    default 8). ``use_native`` picks the background decoder: None (auto)
+    the native one where it builds, True the native one or an error, False
+    PIL."""
 
     def __init__(self, path: str, background_size: int = 256, max_text_length: int = 256,
                  max_size: Optional[int] = None, tokenizer: Optional[LayoutTokenizer] = None,
                  random_seed: int = 0, text_len_clip: Optional[int] = None, cache="auto",
                  cache_gb: Optional[float] = None, load_patches: bool = False,
-                 load_background_orig: bool = False):
+                 load_background_orig: bool = False, use_native: Optional[bool] = None):
         if not path.endswith(".zip"):
             raise IOError("Path must point to a zip")
         self._path = path
         self.background_size = background_size
         self.load_patches = load_patches
         self.load_background_orig = load_background_orig
+        self.use_native = _choose_decoder(use_native, load_background_orig)
         self.tokenizer = tokenizer or LayoutTokenizer(max_length=max_text_length,
                                                       length_clip=text_len_clip)
         self._local = threading.local()
@@ -124,16 +157,20 @@ class LayoutDataset:
     def _decode_static(self, raw_idx: int, keep_orig: bool = False) -> dict:
         """The decode products worth caching: the resized uint8 background
         and the fixed-shape token arrays; with ``keep_orig`` also the
-        full-resolution background ``bg_orig``."""
+        full-resolution background ``bg_orig`` (both from one PIL decode)."""
         import PIL.Image
 
         base_fname, meta = self._samples[raw_idx]
         texts = list(meta["texts"]) + [""] * (MAX_ELEMENTS - len(meta["labels"]))
         text_ids, text_mask, text_len = self.tokenizer.encode_batch(texts)
+        out = dict(text_ids=text_ids, text_mask=text_mask, text_len=text_len)
         with self._zip().open(base_fname + "_background_orig.png") as f:
+            if self.use_native and not keep_orig:
+                out["bg_u8"] = native.resize_lanczos(native.decode_png(f.read()),
+                                                     self.background_size)
+                return out
             img = PIL.Image.open(f)
-            bg_u8 = np.array(img.resize((self.background_size,) * 2, PIL.Image.LANCZOS))
-            out = dict(bg_u8=bg_u8, text_ids=text_ids, text_mask=text_mask, text_len=text_len)
+            out["bg_u8"] = np.array(img.resize((self.background_size,) * 2, PIL.Image.LANCZOS))
             if keep_orig:
                 out["bg_orig"] = np.array(img)
         return out

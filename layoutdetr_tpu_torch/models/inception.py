@@ -227,7 +227,9 @@ def load_inception_params(src: Union[str, dict], device="cuda") -> InceptionV3:
     if isinstance(src, str):
         if os.path.isdir(src):
             raise ValueError(f"{src} is a directory (an orbax checkpoint?); the port reads a torch "
-                             "state dict or an .npz: convert it first (ROADMAP Queue A 14c)")
+                             "state dict or an .npz: convert it on a JAX host with "
+                             "`python tools/orbax_to_port.py --kind inception --src DIR --dest "
+                             "FILE`")
         if src.endswith(".npz"):
             with np.load(src) as f:
                 src = _unflatten(dict(f))

@@ -7,6 +7,11 @@ Counterpart of ``layoutdetr_tpu/utils/checkpoint.py``. A snapshot is one
 beside it as ``<snapshot>.gcfg.json``. Files are read with
 ``weights_only=True``: loading runs no pickled code.
 
+A snapshot also comes from a JAX run: ``tools/orbax_to_port.py`` turns
+the JAX trainer's orbax snapshot into one (``utils.convert.snapshot_from_jax``:
+weights, Adam moments, ``step`` and ``pl_mean``), which ``restore_checkpoint``
+loads strictly and ``train --resume`` continues.
+
 Several ranks (``parallel.distributed``): rank 0 writes the snapshot. A
 snapshot of a tensor-parallel state holds the full tensors, gathered over
 the model group (every rank takes part), so it loads into any layout and

@@ -1,4 +1,4 @@
-"""JAX param tree -> port state dict.
+"""JAX param tree -> port state dict; a JAX training state -> port snapshot.
 
 ``generator_state_dict_from_jax`` and ``discriminator_state_dict_from_jax``
 take the JAX Generator's / Discriminator's parameters (the ``params``
@@ -35,6 +35,19 @@ torch converter fills added vocabulary rows. A tree converted from a
 reference checkpoint carries it and it is taken as is.
 
 ``JaxParams`` does the same for one submodule at a time.
+
+``snapshot_from_jax`` converts a whole JAX ``GANTrainState``
+(``layoutdetr_tpu/training/train_step.py:40-59``, as an orbax restore
+gives it: nested dicts and lists of numpy arrays) into the port's training
+snapshot (``utils.checkpoint.SNAPSHOT_KEYS``): the three weight sets, both
+optimizer states, ``step`` and ``pl_mean``. The optimizer states are
+optax's Adam moments (``multi_transform``: Adam on the trainable leaves,
+``set_to_zero`` on the frozen ones) turned into ``torch.optim.Adam`` state
+dicts: each moment goes through the same per-leaf conversion as its weight
+(the moment trees are converted by the weight converters themselves),
+``step`` is optax's one ``count``, parameters are in the port optimizer's
+order, and a parameter that is no JAX leaf (a filled ``crossattention``
+block, which gets no gradient) has no state, as after a port step.
 """
 
 from __future__ import annotations
@@ -75,6 +88,7 @@ class JaxParams:
             params = params["params"]
         self.flat = {"/".join(p): np.asarray(v, np.float32) for p, v in _flatten(params)}
         self.sd: Dict[str, torch.Tensor] = {}
+        self.filled: set = set()  # names put from no JAX leaf
         self._fill_rng = np.random.default_rng(0)  # crossattention blocks the tree lacks
 
     def take(self, path: str) -> np.ndarray:
@@ -191,6 +205,7 @@ class JaxParams:
             self.put(f"{leaf}.bias", np.zeros(hidden, np.float32))
         self.put(f"{dst}.output.LayerNorm.weight", np.ones(hidden, np.float32))
         self.put(f"{dst}.output.LayerNorm.bias", np.zeros(hidden, np.float32))
+        self.filled.update(k for k in self.sd if k.startswith(f"{dst}."))
 
     def bert_lm_head(self, src: str, dst: str, num_layers: int, encoder_width: int):
         """JAX ``BertLMHeadModel`` -> port ``BertLMHeadModel``."""
@@ -294,6 +309,11 @@ def generator_state_dict_from_jax(params: dict, cfg: GeneratorConfig) -> Dict[st
     """JAX ``Generator`` params (with or without the top ``params`` key)
     -> port ``Generator`` state dict for ``cfg``."""
     c = JaxParams(params)
+    _generator_leaves(c, cfg)
+    return c.finish()
+
+
+def _generator_leaves(c: JaxParams, cfg: GeneratorConfig) -> None:
     c.image_stem(cfg)
     c.dense("fc_z", "fc_z")
     c.put("emb_label.weight", c.take("emb_label"))
@@ -307,7 +327,6 @@ def generator_state_dict_from_jax(params: dict, cfg: GeneratorConfig) -> Dict[st
         c.dense(name, name)
     c.bert_lm_head("text_decoder", "text_decoder", cfg.bert_num_decoder_layers,
                    cfg.decoder_bert_config().encoder_width)
-    return c.finish()
 
 
 def _decoder_resolutions(size: int) -> list:
@@ -318,6 +337,11 @@ def discriminator_state_dict_from_jax(params: dict, cfg: GeneratorConfig) -> Dic
     """JAX ``Discriminator`` params (with or without the top ``params``
     key) -> port ``Discriminator`` state dict for ``cfg``."""
     c = JaxParams(params)
+    _discriminator_leaves(c, cfg)
+    return c.finish()
+
+
+def _discriminator_leaves(c: JaxParams, cfg: GeneratorConfig) -> None:
     c.image_stem(cfg)
     c.dense("fc_bbox", "fc_bbox")
     c.put("emb_label.weight", c.take("emb_label"))
@@ -347,7 +371,96 @@ def discriminator_state_dict_from_jax(params: dict, cfg: GeneratorConfig) -> Dic
                       "dec_transformer_uncond", cfg.reconst_decoder_layers)
     for name in ("bbox_embed_uncond", "fc_out_cls_uncond"):
         c.dense(name, name)
-    return c.finish()
+
+
+def _adam_state(opt_state) -> dict:
+    """optax's Adam state, ``{"count", "mu", "nu"}``, inside an optimizer
+    state as an orbax restore without a target gives it (dicts and lists):
+    the 'train' branch of a ``multi_transform``, or a bare ``adam``."""
+    found = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            if {"count", "mu", "nu"} <= set(node):
+                found.append(node)
+            else:
+                for v in node.values():
+                    walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+
+    walk(opt_state)
+    if len(found) != 1:
+        raise ValueError(f"expected one Adam state (count, mu, nu) in the optimizer state, "
+                         f"found {len(found)}")
+    return found[0]
+
+
+def _fill_masked(moments, params, path=""):
+    """``moments`` with each masked leaf (None: a frozen parameter, which
+    ``set_to_zero`` keeps no moment for) as zeros of its weight's shape."""
+    if isinstance(params, dict):
+        moments = {} if moments is None else moments
+        extra = set(moments) - set(params)
+        if extra:
+            raise KeyError(f"optimizer moments hold {sorted(extra)} under {path or '/'}, "
+                           "which the weights lack")
+        return {k: _fill_masked(moments.get(k), v, f"{path}/{k}") for k, v in params.items()}
+    if moments is None:
+        return np.zeros(np.shape(params), np.float32)
+    if np.shape(moments) != np.shape(params):
+        raise ValueError(f"moment {path}: shape {np.shape(moments)}, weight {np.shape(params)}")
+    return moments
+
+
+def _converted(tree: dict, cfg: GeneratorConfig, leaves) -> JaxParams:
+    c = JaxParams(tree)
+    leaves(c, cfg)
+    c.finish()
+    return c
+
+
+def _adam_state_dict(opt_state, params: dict, cfg: GeneratorConfig, leaves, names: Sequence[str],
+                     param_groups: list) -> dict:
+    """optax's Adam moments -> a ``torch.optim.Adam`` state dict over
+    ``names`` (the port optimizer's parameters, in its order)."""
+    adam = _adam_state(opt_state)
+    mu, nu = (_converted(_fill_masked(adam[k], params), cfg, leaves) for k in ("mu", "nu"))
+    count = float(np.asarray(adam["count"]))
+    state = {i: {"step": torch.tensor(count), "exp_avg": mu.sd[name], "exp_avg_sq": nu.sd[name]}
+             for i, name in enumerate(names) if name not in mu.filled}
+    return {"state": state, "param_groups": param_groups}
+
+
+def snapshot_from_jax(state: dict, cfg: GeneratorConfig, glr: float = 1e-5, dlr: float = 1e-5,
+                      g_reg_interval: Optional[int] = 4, d_reg_interval: Optional[int] = 16) -> dict:
+    """A JAX ``GANTrainState`` (``params_g``, ``params_d``, ``params_gema``,
+    ``opt_state_g``, ``opt_state_d``, ``pl_mean``, ``step``; nested dicts
+    and lists of numpy arrays) -> the port's training snapshot dict, which
+    ``utils.checkpoint.restore_checkpoint`` loads strictly into a state
+    built for ``cfg``. The learning rates and reg intervals set the Adam
+    hyperparameters the snapshot carries, as ``build_optimizer`` derives
+    them (the JAX trainer's defaults unless given)."""
+    from layoutdetr_tpu_torch.models.discriminator import Discriminator
+    from layoutdetr_tpu_torch.models.generator import Generator
+    from layoutdetr_tpu_torch.parallel.tensor_parallel import trainable_names
+    from layoutdetr_tpu_torch.training.optimizers import build_optimizer
+
+    snap = dict(G=generator_state_dict_from_jax(state["params_g"], cfg),
+                D=discriminator_state_dict_from_jax(state["params_d"], cfg),
+                G_ema=generator_state_dict_from_jax(state["params_gema"], cfg),
+                step=int(np.asarray(state["step"])),
+                pl_mean=torch.tensor(np.asarray(state["pl_mean"], np.float32)))
+    for key, model, leaves, lr, interval in (
+            ("g", Generator, _generator_leaves, glr, g_reg_interval),
+            ("d", Discriminator, _discriminator_leaves, dlr, d_reg_interval)):
+        with torch.device("meta"):  # the parameter names and order, without weights
+            module = model(cfg)
+        groups = build_optimizer(module, lr=lr, reg_interval=interval).state_dict()["param_groups"]
+        snap[f"opt_{key}"] = _adam_state_dict(state[f"opt_state_{key}"], state[f"params_{key}"], cfg,
+                                             leaves, trainable_names(module), groups)
+    return snap
 
 
 def layoutganpp_generator_state_dict_from_jax(params: dict, cfg) -> Dict[str, torch.Tensor]:

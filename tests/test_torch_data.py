@@ -34,7 +34,9 @@ def zips(tmp_path_factory):
 
 
 def _datasets(path, **kw):
-    return (ds.LayoutDataset(path, background_size=SIZE, max_text_length=T, **kw),
+    """Both loaders decoding with PIL (the native decoders are held to each
+    other in test_torch_native.py)."""
+    return (ds.LayoutDataset(path, background_size=SIZE, max_text_length=T, use_native=False, **kw),
             jds.LayoutDataset(path, background_size=SIZE, max_text_length=T, use_native=False, **kw))
 
 

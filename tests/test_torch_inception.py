@@ -135,5 +135,5 @@ def test_load_inception_params_forms(params, tmp_path):
     from_tree = load_inception_params({"params": params}, device="cpu").state_dict()
     assert from_npz.keys() == from_tree.keys()
     assert all(torch.equal(from_npz[k], from_tree[k]) for k in from_npz)
-    with pytest.raises(ValueError, match="14c"):
+    with pytest.raises(ValueError, match="tools/orbax_to_port.py --kind inception"):
         load_inception_params(str(tmp_path), device="cpu")
