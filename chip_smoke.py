@@ -23,8 +23,11 @@ each (device busy ms, kernel launches, and the count and host ms of
 hold a step); one JSON line and no ok line. The fifth needs several
 cards: ``python -m layoutdetr_tpu_torch.train --gpus N`` over every
 visible card (NCCL, one process a card) on phase 9's zip, data parallel
-and with ``--model-parallel 2``, each served from once; one JSON line
-and no ok line.
+and with ``--model-parallel 2``, then the multi-host form, two torchrun
+"nodes" of half the cards each (``--nnodes 2``, ``CUDA_VISIBLE_DEVICES``
+splitting the cards) beside ``--gpus N``, each served from once; one
+JSON line and no ok line. The default one-card run cannot hold two NCCL
+ranks on one device, so it does not run the multi-host form.
 
 Phases (any failure ends the run with a non-zero exit and no result):
 
@@ -43,8 +46,11 @@ Phases (any failure ends the run with a non-zero exit and no result):
      snapshot), the evaluation (rows B*9 and the last partial batch's,
      at T=16 and T=256), the HTTP server (rows 5*9 = 45 at T=256; the
      bench's shapes are the train step's and serving's; the ViT's, phase
-     13, are serving's, the train step's and the training run's) and
-     LayoutGAN++ (phase 14: rows B*9 and a partial batch's 7*9 at T=40);
+     13, are serving's, the train step's and the training run's),
+     LayoutGAN++ (phase 14: rows B*9 and a partial batch's 7*9 at T=40)
+     and phase 17 (``entry()``: rows 36 at T=64; a dry-run rank: rows 6
+     at T=8, one head of 192, the dropout form; the closure's digest
+     forward: rows 36 at T=256);
      fp32 and bf16, key padding down to length 2;
      deterministic, and with dropout 0.1 against the plain version with
      the same Philox keep mask; each case's share of its bound and its
@@ -60,7 +66,9 @@ Phases (any failure ends the run with a non-zero exit and no result):
      distinct call of a full-width LayoutGAN++ D's StyleGAN2 ``bg_encoder``
      forward at batch 16 (22 calls: lrelu from [16, 32, 256, 256] down to
      [16, 512, 4, 4], the bias-less linear skips at gain sqrt(1/2), the
-     lrelu and linear FCs [16, 512]);
+     lrelu and linear FCs [16, 512]); and at every call of a dry-run
+     rank's bg_decoder (phase 17: D at ``graft_entry.DRYRUN_CONFIG``,
+     32^2, 2 samples);
 4. model: the full-width Generator (GeneratorConfig() defaults) from
    seeded random weights, with the kernel vs with plain attention on the
    card in fp32 and in bf16, the bf16 model vs the fp32 one, and the
@@ -196,6 +204,23 @@ Phases (any failure ends the run with a non-zero exit and no result):
    0 before the run and read after the request (12 + 48 + 48 a step, 12
    deterministic a summary forward, image snapshot and request, 48 forward
    in D's summary).
+17. the driver hooks and the reference closure: (a)
+   ``graft_entry.entry()`` on the card (``GeneratorConfig()``, b=4, T=64),
+   its ``fn`` counted once (12 attention launches) and timed (CUDA
+   events), against the same weights with plain attention (phase 4's bar)
+   and on the CPU (phase 4's card-vs-CPU bar); (b)
+   ``graft_entry.dryrun_multichip(8)`` in a process of its own, as a
+   driver calls it: 8 ranks over gloo sharing the card (NCCL when 8 cards
+   are visible), one train step each, the OK line, each rank's launches
+   from its own file (1 dropout attention launch and the bg_decoder's
+   bias_act forward and backward a rank), wall time and rank 0's peak
+   memory; (c) ``python -m layoutdetr_tpu_torch.verify_reference --dry-run``
+   through ``verify_reference.main`` at full width: a ``GeneratorConfig()``
+   snapshot pickle (its size printed, deleted after), a val.zip of 40
+   items, the chain's three steps with their seconds, 12 attention
+   launches a G_ema forward (the digest's and the evaluation's), the
+   digest forward against the CPU on the same pickle and z, finite
+   metrics and the report. The phase's wall is printed.
 
 The last three lines of standard output are the kernels JSON, the card
 (nvidia-smi name, power limit) and ``{"ok": true, "device": {...}}``.
@@ -375,7 +400,8 @@ def eval_attention_shapes(batch: int, run_t: int) -> list:
 def attention_phase(torch, attention, seed: int, shapes: list) -> list:
     """Kernel vs plain at each (rows, T) of ``shapes``, [rows, 4, T, 192]
     (or (rows, T, heads, head_offset): a tensor-parallel rank's heads of
-    4), fp32 and bf16, without and with dropout; one record per case."""
+    4; or (rows, T, heads, head_offset, total heads)), fp32 and bf16,
+    without and with dropout; one record per case."""
     import torch.nn.functional as F
 
     d = 192
@@ -385,8 +411,8 @@ def attention_phase(torch, attention, seed: int, shapes: list) -> list:
         for dtype_name in ("float32", "bfloat16"):
             dtype = getattr(torch, dtype_name)
             esize = torch.finfo(dtype).bits // 8
-            for b, t, h, offset in ((*s, 4, 0)[:4] for s in shapes):
-                heads = dict(head_offset=offset, total_heads=4)
+            for b, t, h, offset, total in ((*s, 4, 0, 4)[:5] for s in shapes):
+                heads = dict(head_offset=offset, total_heads=total)
                 g = torch.Generator(device="cuda").manual_seed(seed + t + b)
                 # [B, T, H, D] projections viewed as [B, H, T, D], as BERT gives them
                 q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=g).to(dtype)
@@ -2858,6 +2884,181 @@ def host_data_phase(torch, np, args, card, attention, bias_act_mod, tmp: str, da
     return rec
 
 
+# ---------------------------------------------------------------------------
+# 17. the driver hooks and the reference closure
+# ---------------------------------------------------------------------------
+
+DRYRUN_RANKS = 8  # dryrun_multichip(8), as a round driver calls JAX's
+DRYRUN_TIMEOUT_S = 600
+
+
+def hooks_attention_shapes() -> list:
+    """(rows, T[, heads, head_offset, total heads]) of phase 17's attention
+    calls: ``entry()``'s forward (4 x 9 texts at T=64), a dry-run rank's
+    frozen text pass (2 x 3 texts at T=8, one head of 192, dropout) and
+    the closure's digest forward (4 x 9 at T=256); the closure's
+    evaluation makes phase 10 (b)'s calls (EVAL_WIDE_ITEMS items)."""
+    return [(4 * 9, 64), (2 * 3, 8, 1, 0, 1), (4 * 9, 256)]
+
+
+def dryrun_calls(torch, batch: int = 2) -> list:
+    """The bias_act calls of a dry-run rank's bg_decoder forward (D at
+    ``graft_entry.DRYRUN_CONFIG``: 32^2, ``batch`` samples a rank)."""
+    from layoutdetr_tpu_torch.graft_entry import DRYRUN_CONFIG
+
+    torch.manual_seed(0)
+    calls, disc = bg_decoder_calls(torch, DRYRUN_CONFIG, batch, expect=None)
+    del disc
+    return calls
+
+
+def hooks_phase(torch, np, args, card, attention, bias_act_mod, tmp: str, n_dryrun_calls: int,
+                device: str = "cuda", entry_cfg=None, closure_cfg=None) -> dict:
+    """Phase 17: the driver hooks and the reference closure, each counted
+    from 0. (a) ``graft_entry.entry()`` on ``device`` (``GeneratorConfig()``,
+    b=4, T=64): one counted ``fn`` call (12 attention launches), its time
+    (CUDA events), the same weights with plain attention (phase 4's bar) and
+    on the CPU (phase 4's card-vs-CPU bar). (b) ``dryrun_multichip(8)`` as a
+    driver calls it, in a process of its own: the OK line, each rank's
+    launches (1 dropout attention a rank, the bg_decoder's bias_act forward
+    and backward), wall time and rank 0's peak memory. (c)
+    ``python -m layoutdetr_tpu_torch.verify_reference --dry-run`` through
+    ``verify_reference.main`` at full width: the pickle's size, the chain's
+    three steps with their seconds and launches (12 a G_ema forward: the
+    digest's and the evaluation's), the digest forward against the CPU on
+    the same pickle and z, finite metrics and the report."""
+    from layoutdetr_tpu_torch import graft_entry, verify_reference
+    from layoutdetr_tpu_torch.data.dataset import LayoutDataset
+    from layoutdetr_tpu_torch.metrics import layout_fid
+    from layoutdetr_tpu_torch.models.generator import Generator
+    from layoutdetr_tpu_torch.utils.checkpoint import generator_from_network_pkl
+    from layoutdetr_tpu_torch.utils.legacy_pkl import load_network_pkl
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    rec = {}
+
+    # (a) entry()
+    zero_counters(attention, bias_act_mod)
+    fn, (model, batch) = graft_entry.entry(device=device, cfg=entry_cfg)
+    cfg = model.cfg
+    got = fn(model, batch)
+    if on_card:
+        torch.cuda.synchronize()
+    launches = counters(attention, bias_act_mod)
+    want = dict(fused_attention=cfg.bert_num_encoder_layers if on_card else 0,
+                fused_attention_dropout=0, bias_act=0, bias_act_backward=0)
+    if launches != want:
+        raise AssertionError(f"entry(): launches {launches}, expected {want}")
+    fwd_ms = cuda_ms(torch, lambda: fn(model, batch), 10)
+    with torch.device(device):
+        plain = Generator(cfg, flash_attention=False).eval()
+    plain.load_state_dict(model.state_dict(), strict=True)
+    err_plain = (fn(plain, batch) - got).abs().max().item()
+    del plain
+    cpu_model = Generator(cfg).eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True)
+    err_cpu = (fn(cpu_model, {k: v.cpu() for k, v in batch.items()}) - got.cpu()).abs().max().item()
+    del cpu_model, model, batch
+    if (got.shape != (4, cfg.max_elements, 4) or not torch.isfinite(got).all()
+            or not err_plain <= MODEL_TOL or not err_cpu <= CPU_TOL):
+        raise AssertionError(f"entry(): shape {tuple(got.shape)}, max-abs {err_plain} vs plain "
+                             f"attention, {err_cpu} vs the CPU")
+    rec["entry"] = dict(forward_ms=fwd_ms, launches=launches, max_abs_vs_plain=err_plain,
+                        max_abs_vs_cpu=err_cpu)
+    log(f"entry(): Generator fp32 B=4 T=64 forward {fwd_ms:.2f} ms (CUDA events, 10 calls); "
+        f"kernel vs plain attention max-abs {err_plain:.3e}, card vs CPU {err_cpu:.3e}; "
+        f"launches {launches}  [{card}]")
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) dryrun_multichip(8) as the driver calls it
+    code = ("import json, sys\n"
+            "from layoutdetr_tpu_torch import graft_entry\n"
+            f"r = graft_entry.dryrun_multichip({DRYRUN_RANKS}, device={device!r})\n"
+            "print('DRYRUN ' + json.dumps(r), flush=True)\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                          timeout=DRYRUN_TIMEOUT_S, env=dict(os.environ, PYTHONPATH=ROOT))
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun_multichip({DRYRUN_RANKS}) failed:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-5000:]}")
+    ok = [x for x in proc.stdout.splitlines() if x.startswith(f"dryrun_multichip({DRYRUN_RANKS}) OK;")]
+    (res,) = [json.loads(x[len("DRYRUN "):]) for x in proc.stdout.splitlines()
+              if x.startswith("DRYRUN ")]
+    per_rank = dict(fused_attention=0, fused_attention_dropout=1, bias_act=n_dryrun_calls,
+                    bias_act_backward=n_dryrun_calls)
+    if not on_card:
+        per_rank = dict.fromkeys(per_rank, 0)
+    bad = [r for r in res["ranks"] if r["launches"] != per_rank or r["step"] != 1]
+    if len(ok) != 1 or "step=1," not in ok[0] or len(res["ranks"]) != DRYRUN_RANKS or bad:
+        raise AssertionError(f"dryrun_multichip({DRYRUN_RANKS}): OK lines {ok}, ranks off "
+                             f"{bad}, expected launches a rank {per_rank}")
+    dry_launches = {k: sum(r["launches"][k] for r in res["ranks"]) for k in per_rank}
+    rec["dryrun"] = dict(ok_line=ok[0], backend=res["backend"], cards=res["cards"], wall_s=wall_s,
+                         inner_wall_s=res["wall_s"], launches=dry_launches,
+                         launches_per_rank=per_rank,
+                         step_s=[r["step_s"] for r in res["ranks"]],
+                         rank0_peak_memory_gb=res["ranks"][0]["peak_memory_gb"])
+    log(f"{ok[0]}  (ranks on {res['cards']} card(s) over {res['backend']}; wall {wall_s:.1f} s "
+        f"from the process start, {res['wall_s']:.1f} s in the call; step "
+        f"{res['ranks'][0]['step_s']:.2f} s on rank 0, rank 0 peak memory "
+        f"{res['ranks'][0]['peak_memory_gb'] or 0:.3f} GB; launches a rank {per_rank})  [{card}]")
+
+    # (c) the reference closure's dry run at full width
+    out = os.path.join(tmp, "closure")
+    seen = {}
+    zero_counters(attention, bias_act_mod)
+    t0 = time.perf_counter()
+    with counted_generation(layout_fid, seen):
+        res = verify_reference.main(["--dry-run", out, "--device", device, "--dry-run-items",
+                                     str(EVAL_WIDE_ITEMS), "--dry-run-config",
+                                     json.dumps(closure_cfg or {})])
+    if on_card:
+        torch.cuda.synchronize()
+    closure_s = time.perf_counter() - t0
+    launches = counters(attention, bias_act_mod)
+    forwards = 1 + seen.get("forwards", 0)  # the digest's and the evaluation's
+    want = dict(fused_attention=12 * forwards if on_card else 0, fused_attention_dropout=0,
+                bias_act=0, bias_act_backward=0)
+    n_metrics = len(verify_reference.METRICS_REAL.split(","))
+    if launches != want or forwards != 1 + n_metrics * math.ceil(EVAL_WIDE_ITEMS / args.batch):
+        raise AssertionError(f"closure: launches {launches} in {forwards} G_ema forwards, "
+                             f"expected {want}")
+    pkl_gb = os.path.getsize(res["pkl"]) / 1e9
+    gcfg = dict(res["config"])
+    dataset = LayoutDataset(res["data"], background_size=gcfg["background_size"],
+                            max_text_length=gcfg["max_text_length"],
+                            text_len_clip=gcfg["text_len_table"])
+    cpu_g = generator_from_network_pkl(load_network_pkl(res["pkl"]), "cpu",
+                                       background_size=gcfg["background_size"])
+    want_bbox = verify_reference.fixed_seed_forward(
+        cpu_g, dataset.collate(list(range(res["bbox"].shape[0]))), torch.from_numpy(res["z"]))
+    del cpu_g
+    os.remove(res["pkl"])
+    err = float(np.abs(res["bbox"] - want_bbox).max())
+    values = res["results"]
+    if (not err <= CPU_TOL or not values or not all(map(math.isfinite, values.values()))
+            or not os.path.isfile(res["report"])):
+        raise AssertionError(f"closure: card vs CPU bbox max-abs {err}, metrics {values}, "
+                             f"report {res['report']}")
+    rec["closure"] = dict(pkl_gb=pkl_gb, n_tensors=res["n_tensors"], digest=res["digest"],
+                          seconds=res["seconds"], wall_s=closure_s, launches=launches,
+                          forwards=forwards, bbox_max_abs_vs_cpu=err, metrics=values)
+    log(f"closure (verify_reference --dry-run, GeneratorConfig() pickle {pkl_gb:.3f} GB, "
+        f"{res['n_tensors']} tensors, {EVAL_WIDE_ITEMS} val items): seconds "
+        + ", ".join(f"{k} {v:.2f}" for k, v in res["seconds"].items())
+        + f", wall {closure_s:.1f} s; digest {res['digest']}, card vs CPU bbox max-abs {err:.3e}; "
+          f"metrics " + ", ".join(f"{k} {v:.5g}" for k, v in sorted(values.items()))
+        + f"; launches {launches} = 12 x {forwards} G_ema forwards  [{card}]")
+    rec["launches"] = dict(driver_hooks={k: rec["entry"]["launches"][k] + dry_launches[k]
+                                         for k in dry_launches}, closure=launches)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 17 (driver hooks and the reference closure): {rec['phase_s']:.1f} s  [{card}]")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Run the port's main paths on one GPU.")
     ap.add_argument("--seed", type=int, default=0)
@@ -2939,7 +3140,8 @@ def main() -> int:
                                 + eval_attention_shapes(args.batch, run_t)
                                 + http_attention_shapes()
                                 + layoutganpp_attention_shapes(args.batch)
-                                + multi_gpu_attention_shapes(args.batch)))
+                                + multi_gpu_attention_shapes(args.batch)
+                                + hooks_attention_shapes()))
     attn_cases = attention_phase(torch, attention, args.seed, shapes)
     torch.manual_seed(args.seed)
     enc_calls = encoder_calls(torch, LayoutGanPPConfig(), args.batch)
@@ -2961,6 +3163,10 @@ def main() -> int:
     other_bias_cases = bias_act_phase(torch, bias_act_mod,
                                       [c for cs in other_calls.values() for c in cs], args.seed,
                                       per="step at its batch")
+    # phase 17's dry run: D's bg_decoder at 32^2, a rank's 2 samples
+    dry_calls = dryrun_calls(torch)
+    other_bias_cases += bias_act_phase(torch, bias_act_mod, dry_calls, args.seed,
+                                       per="dry-run rank's step")
     round_trip = (round_trip_phase(torch, bias_act_mod, calls, args.seed)
                   + round_trip_phase(torch, bias_act_mod, other_calls[args.batch // MG_RANKS],
                                      args.seed))
@@ -3102,14 +3308,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     host = host_data_phase(torch, np, args, card, attention, bias_act_mod, workdir.name,
                            host_data, fastdata)
+
+    # 17. the driver hooks and the reference closure
+    torch.cuda.empty_cache()
+    hooks = hooks_phase(torch, np, args, card, attention, bias_act_mod, workdir.name,
+                        len(dry_calls))
     workdir.cleanup()
 
     kernels = kernel_records(attn_cases, bias_cases, serve_launches, train, run, evaluation, http,
-                             bench_rec, vit, lgpp, enc_cases, multi, other_bias_cases, host)
+                             bench_rec, vit, lgpp, enc_cases, multi, other_bias_cases, host,
+                             hooks)
     log(json.dumps({"serving": serving, "train": train, "step_correctness": correctness,
                     "training_run": run, "evaluation": evaluation, "http_serving": http,
                     "bench": bench_rec, "vit": vit, "layoutganpp": lgpp, "multi_gpu": multi,
-                    "host_data": host,
+                    "host_data": host, "driver_hooks": hooks,
                     "bias_act_encoder_cases": enc_cases,
                     "model_max_abs": err, "model_bf16_max_abs": err_bf16,
                     "model_bf16_vs_fp32_max_abs": err_bf16_fp32, "cpu_max_abs": err_cpu,
@@ -3125,9 +3337,10 @@ def main() -> int:
     return 0
 
 
-def bg_decoder_calls(torch, cfg, batch: int, disc=None) -> list:
-    """The arguments of the 48 bias_act calls of one bg_decoder forward at
-    full width (``disc``'s, or seeded random weights), and the D."""
+def bg_decoder_calls(torch, cfg, batch: int, disc=None, expect: int | None = 48) -> list:
+    """The arguments of the bias_act calls of one bg_decoder forward (48 at
+    full width; ``expect=None`` takes any count), ``disc``'s or from seeded
+    random weights, and the D."""
     from layoutdetr_tpu_torch.models.discriminator import Discriminator
     from layoutdetr_tpu_torch.ops import bias_act as bias_act_mod
 
@@ -3138,8 +3351,9 @@ def bg_decoder_calls(torch, cfg, batch: int, disc=None) -> list:
     x0 = torch.randn(batch, cfg.hidden_dim, device="cuda")
     with recorded_bias_act_calls(bias_act_mod, calls), torch.no_grad():
         disc.bg_decoder(x0)
-    if len(calls) != 48:
-        raise AssertionError(f"{len(calls)} bias_act calls in one bg_decoder forward, expected 48")
+    if expect is not None and len(calls) != expect:
+        raise AssertionError(f"{len(calls)} bias_act calls in one bg_decoder forward, "
+                             f"expected {expect}")
     return calls, disc
 
 
@@ -3199,16 +3413,22 @@ def multi_card_only(torch, args) -> int:
     card (one process a card, NCCL) at full width on phase 9's zip (bf16,
     batch 16, auto T, ADA, R1 and path length, a snapshot each tick),
     RUN_STEPS steps: on one card (what the others compare with), data
-    parallel over N and with ``--model-parallel 2``; after each, one
-    request served from its snapshot on one card. Prints each
-    run's sec/kimg (tick 1: steps 2-17), wall, rank 0's peak memory and
-    stats as one JSON line, and no ok line."""
+    parallel over N and with ``--model-parallel 2``; then the multi-host
+    form, two torchrun "nodes" on this host (``--nnodes 2 --node-rank
+    {0,1}``), each with half of the cards through ``CUDA_VISIBLE_DEVICES``
+    (node 1's LOCAL_RANK 0 would otherwise land on node 0's cuda:0), data
+    parallel over NCCL. After each, one request served from its snapshot
+    on one card. Prints each run's sec/kimg (tick 1: steps 2-17), wall,
+    rank 0's peak memory and stats as one JSON line, and no ok line."""
     from layoutdetr_tpu_torch import generate
     from layoutdetr_tpu_torch import train as train_cli
     from layoutdetr_tpu_torch.ops import _build
+    from layoutdetr_tpu_torch.parallel.distributed import free_port
 
     card = nvidia_smi()
     n = torch.cuda.device_count()
+    if n < 2:
+        raise SystemExit(f"--multi-card needs at least 2 cards, {n} visible")
     log(f"multi-card: {n} x {card}")
     with ThreadPoolExecutor(max_workers=2) as pool:
         list(pool.map(_build.build, ("attention", "bias_act")))
@@ -3219,16 +3439,12 @@ def multi_card_only(torch, args) -> int:
 
     with zipfile.ZipFile(zip_path) as zf, open(bg, "wb") as f:
         f.write(zf.read("00000000_background_orig.png"))
+    flags = ["--data", zip_path, "--batch", str(args.batch), "--bf16", "--max-text-length", "auto",
+             "--aug", "ada", "--gamma", "1", "--pl-weight", "2", "--seed", str(args.seed), "--snap",
+             "1", "--metrics", "none", "--max-steps", str(RUN_STEPS)]
     runs = []
-    for gpus, mp in ((1, 1), (n, 1), (n, 2)):  # one card first: what the others compare with
-        out = os.path.join(tmp.name, f"runs-{gpus}-{mp}")
-        t0 = time.perf_counter()
-        train_cli.main(["--outdir", out, "--data", zip_path, "--batch", str(args.batch), "--bf16",
-                        "--max-text-length", "auto", "--aug", "ada", "--gamma", "1",
-                        "--pl-weight", "2", "--seed", str(args.seed), "--snap", "1",
-                        "--metrics", "none", "--max-steps", str(RUN_STEPS), "--gpus", str(gpus),
-                        "--model-parallel", str(mp)])
-        wall_s = time.perf_counter() - t0
+
+    def record(out, gpus, mp, wall_s, form):
         (run_name,) = os.listdir(out)
         run_dir = os.path.join(out, run_name)
         records = read_jsonl(os.path.join(run_dir, "stats.jsonl"))
@@ -3236,28 +3452,65 @@ def multi_card_only(torch, args) -> int:
         bad = [k for r in records for k, v in r.items() if isinstance(v, dict) and v["num"]
                and not (math.isfinite(v["mean"]) and math.isfinite(v["std"]))]
         if reports != gpus * RUN_STEPS or bad:
-            raise AssertionError(f"--gpus {gpus} --model-parallel {mp}: {reports} main-step "
-                                 f"reports (expected {gpus * RUN_STEPS}), non-finite {bad}")
+            raise AssertionError(f"{form}: {reports} main-step reports (expected "
+                                 f"{gpus * RUN_STEPS}), non-finite {bad}")
         snap = os.path.join(run_dir, "network-snapshot-000000.pt")
         (layout,) = generate.main(["--ckpt", snap, "--bg", bg, "--strings", "summer sale|shop now",
                                    "--string-labels", "header|button", "--device", "cuda",
                                    "--outfile", os.path.join(out, "served", "banner")])
         if not ((layout.raw > 0) & (layout.raw < 1)).all():
-            raise AssertionError(f"served from the --gpus {gpus} --model-parallel {mp} snapshot: "
-                                 f"{layout.raw}")
+            raise AssertionError(f"served from the {form} snapshot: {layout.raw}")
         last = records[-1]
-        runs.append(dict(gpus=gpus, model_parallel=mp, batch=args.batch, T=t, steps=RUN_STEPS,
-                         wall_s=wall_s, sec_per_kimg=last["sec_per_kimg"],
+        runs.append(dict(form=form, gpus=gpus, model_parallel=mp, batch=args.batch, T=t,
+                         steps=RUN_STEPS, wall_s=wall_s, sec_per_kimg=last["sec_per_kimg"],
                          main_step_s=last["main_step_s"], reg_step_s=last["reg_step_s"],
                          devmem_peak_gb=max(r["devmem_peak_gb"] for r in records),
                          losses={k: v["mean"] for k, v in last.items()
                                  if isinstance(v, dict) and v["num"]}))
-        log(f"train --gpus {gpus} --model-parallel {mp} ({'NCCL' if gpus > 1 else 'no group'}), "
-            f"bf16 batch {args.batch} T={t}, "
-            f"{RUN_STEPS} steps: {last['sec_per_kimg']:.2f} sec/kimg (tick 1), wall {wall_s:.1f} s, "
-            f"rank 0 peak {runs[-1]['devmem_peak_gb']:.2f} GiB; served from its snapshot  [{card}]")
+        log(f"{form}, bf16 batch {args.batch} T={t}, {RUN_STEPS} steps: "
+            f"{last['sec_per_kimg']:.2f} sec/kimg (tick 1), wall {wall_s:.1f} s, rank 0 peak "
+            f"{runs[-1]['devmem_peak_gb']:.2f} GiB; served from its snapshot  [{card}]")
+
+    for gpus, mp in ((1, 1), (n, 1), (n, 2)):  # one card first: what the others compare with
+        out = os.path.join(tmp.name, f"runs-{gpus}-{mp}")
+        t0 = time.perf_counter()
+        train_cli.main(["--outdir", out, *flags, "--gpus", str(gpus), "--model-parallel", str(mp)])
+        record(out, gpus, mp, time.perf_counter() - t0,
+               f"train --gpus {gpus} --model-parallel {mp} ({'NCCL' if gpus > 1 else 'no group'})")
+
+    # the multi-host form: two torchrun nodes of half the cards each
+    half = n // 2
+    out = os.path.join(tmp.name, "runs-torchrun")
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes", "2", "--node-rank", str(node),
+         "--nproc-per-node", str(half), "--master-addr", "127.0.0.1", "--master-port", str(port),
+         "-m", "layoutdetr_tpu_torch.train", "--outdir", out, *flags],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=ROOT,
+                 CUDA_VISIBLE_DEVICES=",".join(str(c) for c in range(node * half, (node + 1) * half))))
+        for node in (0, 1)]
+    try:
+        logs = [p.communicate(timeout=1800)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError("torchrun two-node run failed:\n" + "\n".join(x[-4000:] for x in logs))
+    record(out, 2 * half, 1, time.perf_counter() - t0,
+           f"torchrun --nnodes 2 --nproc-per-node {half} (NCCL, {2 * half} ranks)")
+    beside = next(r for r in runs if r["gpus"] == 2 * half and r["model_parallel"] == 1
+                  and r["form"].startswith("train"))
+    diff = {k: v - beside["losses"][k] for k, v in runs[-1]["losses"].items() if k in beside["losses"]}
+    log(f"torchrun two nodes vs {beside['form']}: sec/kimg {runs[-1]['sec_per_kimg']:.2f} against "
+        f"{beside['sec_per_kimg']:.2f}; last-tick loss means differ by at most "
+        f"{max(map(abs, diff.values())):.3e}  [{card}]")
     tmp.cleanup()
-    print(json.dumps({"multi_card": runs, "card": card}), flush=True)
+    print(json.dumps({"multi_card": runs, "torchrun_vs_gpus_loss_diff": diff, "card": card}),
+          flush=True)
     return 0
 
 
@@ -3393,7 +3646,8 @@ def largest_lrelu(cases: list) -> dict:
 
 def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run: dict,
                    evaluation: dict, http: dict, bench_rec: dict, vit: dict, lgpp: dict,
-                   enc_cases: list, multi: dict, other_bias_cases: list, host: dict) -> list:
+                   enc_cases: list, multi: dict, other_bias_cases: list, host: dict,
+                   hooks: dict) -> list:
     """The kernels line: each kernel at its representative case (fp32,
     T=256 for attention; one fp32 step's 48 bias_act calls summed), with
     the launches of each main path that runs it (``launches_by_path``) and
@@ -3404,8 +3658,10 @@ def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run
     evaluation, the HTTP server and the bench's --infer; the bench's train
     step runs the dropout form and both bias_act kernels; the ViT's serving,
     train step and training run with its evaluation, LayoutGAN++'s
-    forwards and D backward, phase 15's ranks summed over the ranks, and
-    phase 16's run with its served request, each a path of its own).
+    forwards and D backward, phase 15's ranks summed over the ranks,
+    phase 16's run with its served request, and phase 17's driver hooks
+    (``entry()`` and the dry run's ranks summed) and reference closure,
+    each a path of its own).
     bias_act's record
     also sums one LayoutGAN++ bg_encoder forward's calls
     (``per_encoder_forward``) and holds the bg_decoder's cases at the
@@ -3429,7 +3685,9 @@ def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run
         by_path[k]["bench_train"] = bench_rec["train"]["launches"][k]
     vit_paths = dict(vit_serving=vit["serving"]["launches"], vit_train_step=vit["train"][0]["launches"],
                      vit_training_run=vit["training_run"]["launches"], layoutganpp=lgpp["launches"],
-                     multi_gpu=multi["launches"], host_data=host["launches"])
+                     multi_gpu=multi["launches"], host_data=host["launches"],
+                     driver_hooks=hooks["launches"]["driver_hooks"],
+                     closure=hooks["launches"]["closure"])
     for path, launches in vit_paths.items():
         for k, n in launches.items():
             if n:

@@ -52,6 +52,12 @@ import torch
 import torch.distributed as dist
 
 BUCKET_BYTES = 64 * 2 ** 20  # a flat bucket of the gradient all_reduce and the broadcast
+# Torch threads of a CPU rank, spawned or torchrun's. The CPU's
+# multi-threaded kernels sum in an order that changes from run to run (seen
+# as ~1e-7 in D's losses at the second step between two runs of one command
+# at 4 threads a rank); on one thread a rank's sums keep one order, so a
+# torchrun rank and a spawned one agree bit for bit.
+CPU_RANK_THREADS = 1
 # how long a collective waits: a snapshot tick's metrics run on rank 0 alone
 TIMEOUT = datetime.timedelta(hours=1)
 
@@ -286,8 +292,8 @@ def _entry(rank: int, fn: Callable, world: int, model_parallel: int, devices: Se
     if rank:  # rank 0 prints for all
         sys.stdout = open(os.devnull, "w")
     device = torch.device(devices[rank])
-    if device.type == "cpu":  # the ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    if device.type == "cpu":
+        torch.set_num_threads(CPU_RANK_THREADS)
     init(rank, world, model_parallel, device, backend, init_method)
     try:
         fn(*args)

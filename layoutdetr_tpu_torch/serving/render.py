@@ -83,11 +83,12 @@ def get_adaptive_font_button_color(img):
 def _element_geometry(box, style, is_center, w_page, h_page):
     """Resolve one element's pixel geometry + font, incl. button pill.
 
-    Also returns ``raw_box``, the pre-pill pixel ltrb: the reference
-    resolves the adaptive FONT color from the original box crop before
-    the button-pill resize (generate_util.py:206-215 precedes the
-    resize at 220-236), while the button BACKGROUND color uses the
-    resized crop (generate_util.py:252-255)."""
+    Also returns the two colour crops: ``font_crop``, the pre-pill pixel
+    ltrb, since the reference resolves the adaptive FONT color from the
+    original box crop before the button-pill resize (generate_util.py:
+    206-215 precedes the resize at 220-236), and ``pill_crop``, the
+    resized box the button BACKGROUND color reads (generate_util.py:
+    252-255)."""
     x1, y1, x2, y2 = convert_xywh_to_ltrb(box)
     x1, x2 = max(0, int(x1 * w_page)), min(w_page - 1, int(x2 * w_page))
     y1, y2 = max(0, int(y1 * h_page)), min(h_page - 1, int(y2 * h_page))
@@ -95,10 +96,17 @@ def _element_geometry(box, style, is_center, w_page, h_page):
     # out or shrink it below 0) keeps a 1-pixel extent at its clipped edge:
     # the reference's font sizing takes the square root of a negative area
     # there and fails. Boxes on the page keep their pixels.
+    clipped = (x1, y1, x2, y2)
     x1, y1 = min(x1, w_page - 1), min(y1, h_page - 1)
     x2, y2 = max(x2, x1), max(y2, y1)
+    # PIL's crop excludes its right and lower edges, so where that clamp
+    # fired the colour crops take one pixel past the kept edge: a crop of
+    # 0 pixels has a NaN median, which reads as a dark page. Boxes on the
+    # page keep the reference's crops.
+    pad_x = int((x1, x2) != (clipped[0], clipped[2]))
+    pad_y = int((y1, y2) != (clipped[1], clipped[3]))
     h_tbox, w_tbox = int(y2 - y1 + 1), int(x2 - x1 + 1)
-    raw_box = (int(x1), int(y1), int(x2), int(y2))
+    font_crop = (int(x1), int(y1), int(x2) + pad_x, int(y2) + pad_y)
     text = style.get("text", "")
     font_size, text_width = get_adaptive_font_size(w_tbox, h_tbox, h_page, text, style["type"])
 
@@ -121,7 +129,8 @@ def _element_geometry(box, style, is_center, w_page, h_page):
     # No int() cast: after the pill resize the reference's coords are
     # FLOATS and its CSS carries them verbatim ("top:43.9px",
     # generate_util.py:247-248); non-button coords are already ints.
-    return x1, y1, x2, y2, w_tbox, h_tbox, font_size, raw_box
+    pill_crop = [x1, y1, x2 + pad_x, y2 + pad_y]
+    return x1, y1, x2, y2, w_tbox, h_tbox, font_size, (font_crop, pill_crop)
 
 
 def compose_banner_html(boxes, masks, styles: List[dict], is_center: bool,
@@ -137,7 +146,7 @@ def compose_banner_html(boxes, masks, styles: List[dict], is_center: bool,
         text = style.get("text", "")
         if not text:
             continue
-        x1, y1, x2, y2, w_tbox, h_tbox, font_size, raw_box = _element_geometry(
+        x1, y1, x2, y2, w_tbox, h_tbox, font_size, (font_crop, pill_crop) = _element_geometry(
             boxes[i], style, is_center, w_page, h_page)
 
         font_color = style.get("style", {}).get("color", "")
@@ -145,7 +154,7 @@ def compose_banner_html(boxes, masks, styles: List[dict], is_center: bool,
             font_color = f"color:{font_color};"
         else:
             # font color from the PRE-pill crop (generate_util.py:206-215)
-            crop = background_img.crop(list(raw_box))
+            crop = background_img.crop(font_crop)
             if style["type"] == "button":
                 font_color = f"color:{get_adaptive_font_button_color(crop)[0]};"
             else:
@@ -164,7 +173,7 @@ def compose_banner_html(boxes, masks, styles: List[dict], is_center: bool,
             params = style.get("buttonParams", {})
             # button bg color from the POST-pill crop (generate_util.py:252-255)
             bg = params.get("backgroundColor") or get_adaptive_font_button_color(
-                background_img.crop([x1, y1, x2, y2]))[1]
+                background_img.crop(pill_crop))[1]
             css += f"background-color:{bg};"
             if params.get("radius"):
                 css += f"border-radius:{str(params['radius']).strip()}em;"
@@ -204,18 +213,18 @@ def render_banner_pil(boxes, masks, styles, is_center, background_img,
         text = style.get("text", "")
         if not text:
             continue
-        x1, y1, x2, y2, w_tbox, h_tbox, font_size, raw_box = _element_geometry(
+        x1, y1, x2, y2, w_tbox, h_tbox, font_size, (font_crop, pill_crop) = _element_geometry(
             boxes[i], style, is_center, w_page, h_page)
         if style["type"] == "button":
             # font color from the pre-pill crop, pill bg from the resized
             # crop — same resolution order as compose_banner_html.
-            fc = get_adaptive_font_button_color(background_img.crop(list(raw_box)))[0]
-            bg = get_adaptive_font_button_color(background_img.crop([x1, y1, x2, y2]))[1]
+            fc = get_adaptive_font_button_color(background_img.crop(font_crop))[0]
+            bg = get_adaptive_font_button_color(background_img.crop(pill_crop))[1]
             draw.rounded_rectangle([x1, y1, x2, y2], radius=h_tbox // 2,
                                    fill=_parse_rgba(bg))
             color = _parse_rgba(fc)
         else:
-            color = _parse_rgba(get_adaptive_font_color(background_img.crop(list(raw_box))))
+            color = _parse_rgba(get_adaptive_font_color(background_img.crop(font_crop)))
         try:
             font = PIL.ImageFont.truetype("DejaVuSans.ttf", int(font_size))
         except Exception:

@@ -24,9 +24,20 @@ runs one process per card, rank r on ``cuda:r``, over NCCL
 into N/M data x M model ranks (``parallel.tensor_parallel``); ``--batch``
 is the global batch. Asking for more cards than are visible is an error.
 Under torchrun (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` set) this process
-is that rank and spawns nothing. ``--device cpu --chips N`` spawns N gloo
-ranks on the CPU (JAX's virtual CPU mesh; a rehearsal). One card and no
-torchrun: no process group, as before.
+is that rank, on ``cuda:LOCAL_RANK``, and spawns nothing; several hosts
+are one run:
+
+    torchrun --nnodes 2 --node-rank {0,1} --nproc-per-node 8 \
+        --master-addr HOST0 --master-port 29500 \
+        -m layoutdetr_tpu_torch.train --outdir runs --data train.zip --batch 16
+
+``--chips``/``--gpus`` there must equal torchrun's world size. Rank 0
+writes the run directory; ``--resume`` reads the snapshot on every rank,
+as the reference's DDP does, so the hosts need one shared file system
+for it. ``--device cpu --chips N`` spawns N gloo ranks on the CPU (JAX's
+virtual CPU mesh; a rehearsal); a CPU rank, spawned or torchrun's, runs
+torch on one thread (``distributed.CPU_RANK_THREADS``), so both sum in one
+order. One card and no torchrun: no process group, as before.
 
 Importing this module starts nothing; ``main(argv)`` runs the CLI and
 returns the final ``GANTrainState`` of a one-process run (None for
@@ -218,14 +229,17 @@ def _torchrun_rank() -> Optional[tuple]:
 
 
 def _ranks(ap: argparse.ArgumentParser, opts, device: torch.device) -> int:
-    """The run's rank count: ``--chips``/``--gpus``, else every visible
-    card (1 on the CPU); an error past the visible cards, or when the
-    model-parallel degree or the data-parallel share of the batch does not
-    divide."""
+    """The run's rank count: torchrun's world size, else ``--chips``/
+    ``--gpus``, else every visible card (1 on the CPU); an error when
+    ``--chips`` disagrees with torchrun, past the visible cards, or when
+    the model-parallel degree or the data-parallel share of the batch does
+    not divide."""
     asked = opts.chips if opts.chips is not None else opts.gpus
     launched = _torchrun_rank()
     if launched is not None:
         world = launched[1]
+        if asked is not None and asked != world:
+            ap.error(f"--chips {asked}, but torchrun started {world} ranks (WORLD_SIZE)")
     elif device.type == "cuda":
         visible = torch.cuda.device_count()
         world = visible if asked is None else asked
@@ -287,6 +301,8 @@ def main(argv: Optional[Sequence[str]] = None):
         if rank:  # rank 0 prints for all
             sys.stdout = open(os.devnull, "w")
         rank_device = torch.device(f"cuda:{local}") if device.type == "cuda" else device
+        if device.type == "cpu":  # as a spawned CPU rank: the same sums in one order
+            torch.set_num_threads(distributed.CPU_RANK_THREADS)
         distributed.init(rank, world, opts.model_parallel, rank_device)
         try:
             import torch.distributed as dist

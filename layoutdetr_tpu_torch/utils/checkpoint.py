@@ -142,23 +142,38 @@ def load_generator_checkpoint(ckpt: str, device: Union[str, torch.device] = "cud
       from the weights' shapes over ``gcfg_defaults``;
     - a training snapshot: its G_ema, config from ``<ckpt>.gcfg.json``;
     - a ``save_generator`` file: config from ``<ckpt>.json``."""
+    if ckpt.endswith(".pkl"):
+        from layoutdetr_tpu_torch.utils.legacy_pkl import load_network_pkl
+
+        return generator_from_network_pkl(load_network_pkl(ckpt), device, dtype, ckpt,
+                                          **gcfg_defaults)
+    obj = torch.load(ckpt, map_location="cpu", weights_only=True)
+    snapshot = "G_ema" in obj and isinstance(obj["G_ema"], dict)
+    sd = obj["G_ema"] if snapshot else obj
+    with open(ckpt + (".gcfg.json" if snapshot else ".json")) as f:
+        fields = dict(gcfg_defaults, **json.load(f))
+    return _generator(fields, sd, device, dtype)
+
+
+def generator_from_network_pkl(nets: dict, device: Union[str, torch.device] = "cuda",
+                               dtype: torch.dtype = torch.float32, name: str = "the snapshot",
+                               **gcfg_defaults):
+    """The Generator of a reference snapshot that ``legacy_pkl.load_network_pkl``
+    read: G_ema (else G), its config inferred from the weights' shapes over
+    ``gcfg_defaults``, in eval mode on ``device``."""
+    from layoutdetr_tpu_torch.utils.legacy_pkl import infer_generator_config
+
+    entry = nets.get("G_ema") or nets.get("G")
+    if entry is None:
+        raise ValueError(f"{name} contains no G_ema/G module")
+    fields = dict(gcfg_defaults, **infer_generator_config(entry["state_dict"]))
+    return _generator(fields, {k: torch.from_numpy(v) for k, v in entry["state_dict"].items()},
+                      device, dtype)
+
+
+def _generator(fields: dict, sd: Dict[str, torch.Tensor], device, dtype):
     from layoutdetr_tpu_torch.models.generator import Generator
 
-    if ckpt.endswith(".pkl"):
-        from layoutdetr_tpu_torch.utils.legacy_pkl import infer_generator_config, load_network_pkl
-
-        nets = load_network_pkl(ckpt)
-        entry = nets.get("G_ema") or nets.get("G")
-        if entry is None:
-            raise ValueError(f"{ckpt} contains no G_ema/G module")
-        fields = dict(gcfg_defaults, **infer_generator_config(entry["state_dict"]))
-        sd = {k: torch.from_numpy(v) for k, v in entry["state_dict"].items()}
-    else:
-        obj = torch.load(ckpt, map_location="cpu", weights_only=True)
-        snapshot = "G_ema" in obj and isinstance(obj["G_ema"], dict)
-        sd = obj["G_ema"] if snapshot else obj
-        with open(ckpt + (".gcfg.json" if snapshot else ".json")) as f:
-            fields = dict(gcfg_defaults, **json.load(f))
     model = Generator(GeneratorConfig.from_dict(fields), dtype=dtype)
     model.load_state_dict(sd, strict=True)
     return model.to(device).eval()

@@ -217,3 +217,49 @@ def test_a_box_off_the_page_still_renders(tmp_path):
     with open(html) as f:
         doc = f.read()
     assert doc.count(";height:1px;") == 2 and doc.count(";width:1px;") == 1
+
+
+@pytest.mark.parametrize("kind", ["header", "button"])
+def test_an_off_page_box_takes_its_font_colour_from_the_page(tmp_path, kind):
+    """The colour crops of a box the render clamps to its clipped edge take
+    the one pixel column the box keeps and follow the page, with no empty-slice
+    warning. A crop of 0 pixels has a NaN median, which read as a dark page
+    for a text and as a bright one for a button, whatever the page."""
+    import warnings
+
+    from layoutdetr_tpu_torch.serving.render import (_element_geometry, compose_banner_html,
+                                                     render_banner_pil)
+
+    box = np.array([[1.2, 0.5, 0.2, 0.2]], np.float32)
+    style = {"text": "Hello", "type": kind}
+    font_crop, pill_crop = _element_geometry(box[0], style, False, 200, 100)[-1]
+    assert font_crop[2] - font_crop[0] == 1 and pill_crop[2] - pill_crop[0] == 1
+    black, white = "(0, 0, 0, 255)", "(255, 255, 255, 255)"
+    # a text is dark on a bright page; a button is a dark pill with a
+    # white font there (get_adaptive_font_button_color), the other way on
+    # a dark page
+    cases = ((250, black, None), (5, white, None)) if kind == "header" else \
+        ((250, white, black), (5, black, white))
+    for shade, font, pill in cases:
+        page = PIL.Image.new("RGB", (200, 100), (shade,) * 3)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            doc = compose_banner_html(box, np.ones(1, bool), [style], False, page, "bg.png")
+            render_banner_pil(box, np.ones(1, bool), [style], False, page,
+                              str(tmp_path / f"{kind}_{shade}.png"))
+        # the reference writes a text's white as "rgba:(...)" (render.py)
+        assert f"color:rgba{':' if kind == 'header' and font == white else ''}{font};" in doc
+        if kind == "button":
+            assert f"background-color:rgba{pill};" in doc
+
+
+def test_an_on_page_box_keeps_the_reference_colour_crops():
+    """On the page the crops are the reference's: the pre-pill box as
+    truncated, the pill as resized, nothing added."""
+    from layoutdetr_tpu_torch.serving.render import _element_geometry
+
+    for kind in ("header", "button"):
+        x1, y1, x2, y2, *_, (font_crop, pill_crop) = _element_geometry(
+            np.array([0.5, 0.5, 0.3, 0.2]), {"text": "Hi", "type": kind}, False, 200, 100)
+        assert font_crop == (70, 40, 130, 60)
+        assert pill_crop == [x1, y1, x2, y2]
