@@ -189,19 +189,21 @@ Phases (any failure ends the run with a non-zero exit and no result):
    ``generate --ckpt`` from the snapshot; (d) one fp32 step through an
    NCCL group of one rank, equal bit for bit to the step without a group
    (cuDNN deterministic for both).
-16. the host data path (slice 8): a source tree of 16 banner pages
-   (PIL, 15 banner sizes up to 1024 px, 1-9 elements) through ``python -m
-   layoutdetr_tpu_torch.dataset_tool`` (made before phase 3, whose
-   attention shapes include this run's auto T; pages, zip bytes and
-   seconds printed); every background of its zips decoded by phase 2's
-   fastdata against PIL (decode exact, Lanczos to 256^2 within 1 level,
-   mean under 0.01); the ms a background (1024^2 -> 256^2) and
-   ``warm_cache`` seconds native and PIL on the host clock, with the
-   derived figure for the reference's 7,672 pages; then ``train.main
-   --device-feed off --batch 16 --bf16 --max-text-length auto`` for 4 steps
-   on the tool's train.zip, its host loader decoding natively (checked),
-   and one request served from its snapshot, with the launch counts set to
-   0 before the run and read after the request (12 + 48 + 48 a step, 12
+16. the host data path (slice 8), through the rehearsal launcher
+   ``tools/run_production_rehearsal_torch.sh`` at REH_PAGES=16: ``python -m
+   layoutdetr_tpu_torch.production_source`` (15 banner sizes up to 1024 px,
+   1-9 elements), ``python -m layoutdetr_tpu_torch.dataset_tool
+   --png-compress 3`` and ``python -m layoutdetr_tpu_torch.train
+   --load-patches --device-feed off --batch 16 --bf16`` (T=256) for 4 steps
+   (``--max-steps``, 2 loader workers), its host loader decoding natively (checked), each
+   step's wall and peak RSS and the zips' bytes printed; every background
+   of its zips decoded by phase 2's fastdata against PIL (decode exact,
+   Lanczos to 256^2 within 1 level with a mean under 0.01, and the same on
+   four dithered 1024^2 gradients, the bar of JAX's tests); the ms a background
+   (1024^2 -> 256^2) and ``warm_cache`` seconds native and PIL on the host
+   clock; one request served from the run's snapshot. Launches: the
+   trainer process's (the ``Kernel launches:`` line it prints at its end)
+   and the request's, counted from 0 (12 + 48 + 48 a step, 12
    deterministic a summary forward, image snapshot and request, 48 forward
    in D's summary).
 17. the driver hooks and the reference closure: (a)
@@ -221,6 +223,18 @@ Phases (any failure ends the run with a non-zero exit and no result):
    launches a G_ema forward (the digest's and the evaluation's), the
    digest forward against the CPU on the same pickle and z, finite
    metrics and the report. The phase's wall is printed.
+18. the long-run launcher at full width (``GeneratorConfig()``, bf16, batch
+   16, T=256, ADA, no reg steps, the layout FID and the layout suite at
+   snapshot ticks): ``tools/run_stability_torch.sh`` builds its zips (1024
+   + 128 structured samples at 256^2) and trains in the background;
+   ``tools/stop_stability_torch.sh`` stops it once its ``log.txt`` exists,
+   and the run must end at its first tick through the SIGTERM, with a
+   snapshot; ``STAB_RESUME`` of that snapshot trains 2 more steps, its
+   ``--resume-kimg`` from the name, its restored state's sha256 (printed by
+   the trainer) equal to the file's and its kimg going on from the
+   snapshot's; ``tools/stability_report.py`` on both run directories finds
+   0 non-finite values; each trainer process's launches as scheduled (its
+   ``Kernel launches:`` line).
 
 The last three lines of standard output are the kernels JSON, the card
 (nvidia-smi name, power limit) and ``{"ok": true, "device": {...}}``.
@@ -232,6 +246,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import glob
 import json
 import math
 import os
@@ -2643,85 +2658,49 @@ def multi_gpu_phase(torch, np, args, card, attention, bias_act_mod, tmp: str, zi
 # 16. the host data path
 # ---------------------------------------------------------------------------
 
-HOST_PAGES, HOST_STEPS = 16, 4
-REFERENCE_PAGES = 7672  # the reference dataset's pages
+HOST_PAGES, HOST_STEPS, HOST_WORKERS = 16, 4, 2
+HOST_T = 256  # the rehearsal launcher's T: JAX's flags give no --max-text-length
 HOST_TIMING_PASSES = 3
-# banner sizes (w, h): IAB formats and square/social crops, sides <= 1024
-BANNER_FORMATS = ((300, 250), (336, 280), (728, 90), (970, 250), (160, 600), (300, 600),
-                  (320, 480), (480, 320), (640, 640), (800, 800), (1024, 512), (512, 1024),
-                  (1024, 1024), (600, 500), (960, 640))
+LAUNCHER_TIMEOUT_S = 600  # a launcher's deadline in phases 16 and 18
+LAUNCH_LINE = "Kernel launches: "  # what a trainer process prints at its end
 
 
-def banner_source(np, root: str, pages: int, seed: int) -> None:
-    """A source tree in the dataset tool's input layout:
-    ``png_json_gt/<name>.png`` + ``<name>.json`` and
-    ``1x_inpainted_background_png/<name>_inpainted.png``. Page i has size
-    BANNER_FORMATS[i % 15] and 1-9 elements, each a box with text in its
-    own cell of a 3 x 3 grid; the background is the page without them."""
-    import PIL.Image
-    import PIL.ImageDraw
+def free_disk(tmp: str, *names: str) -> None:
+    """Remove what finished phases left in the work directory. A card
+    machine's disk takes 45 GiB of writes a call, and a full-width snapshot
+    is 4.87 GiB: the run directories of every phase kept to the end passed
+    that in phase 18, so each goes once no later phase reads it, and its
+    blocks are written again."""
+    import shutil
 
-    rng = np.random.default_rng(seed)
-    gt = os.path.join(root, "png_json_gt")
-    bgd = os.path.join(root, "1x_inpainted_background_png")
-    os.makedirs(gt)
-    os.makedirs(bgd)
-    for i in range(pages):
-        w, h = BANNER_FORMATS[i % len(BANNER_FORMATS)]
-        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-        bg = np.stack([60 + 150 * xx / w, 40 + 160 * yy / h, 200 - 120 * (xx + yy) / (w + h)], -1)
-        bg = (bg + rng.normal(0, 6, bg.shape)).clip(0, 255).astype(np.uint8)
-        page = PIL.Image.fromarray(bg)
-        draw = PIL.ImageDraw.Draw(page)
-        elements = []
-        cw, ch = w // 3, h // 3
-        for cell in rng.permutation(9)[:int(rng.integers(1, 10))].tolist():
-            x1 = (cell % 3) * cw + int(rng.integers(0, cw // 4 + 1))
-            y1 = (cell // 3) * ch + int(rng.integers(0, ch // 4 + 1))
-            x2 = x1 + max(4, int(cw * rng.uniform(0.5, 0.75)))
-            y2 = y1 + max(4, int(ch * rng.uniform(0.5, 0.75)))
-            color = tuple(int(v) for v in rng.integers(0, 256, 3))
-            draw.rectangle([x1, y1, x2 - 1, y2 - 1], fill=color)
-            text = " ".join(rng.choice(WORDS, int(rng.integers(1, 6))))
-            draw.text((x1 + 2, y1 + 1), text, fill=tuple(255 - c for c in color))
-            elements.append({"label": LABELS[int(rng.integers(0, len(LABELS)))], "str": text,
-                             "xyxy_word_fit": [x1, y1, x2, y2]})
-        name = f"page{i:06d}"
-        page.save(os.path.join(gt, name + ".png"), compress_level=1)
-        with open(os.path.join(gt, name + ".json"), "w") as f:
-            json.dump(elements, f)
-        PIL.Image.fromarray(bg).save(os.path.join(bgd, name + "_inpainted.png"), compress_level=1)
+    for name in names:
+        path = os.path.join(tmp, name)
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        elif os.path.exists(path):
+            os.remove(path)
 
 
-def host_data_zips(np, tmp: str, seed: int, card: str) -> dict:
-    """Phase 16's dataset, made before phase 3 (its auto T sets the run's
-    attention shapes): HOST_PAGES banner pages through ``python -m
-    layoutdetr_tpu_torch.dataset_tool``, timed on the host clock."""
-    from layoutdetr_tpu_torch import dataset_tool
-    from layoutdetr_tpu_torch.data.dataset import LayoutDataset
-    from layoutdetr_tpu_torch.train import auto_text_length
+def launched(text: str) -> dict:
+    """The kernel launches a trainer process printed at its end (its last
+    ``Kernel launches:`` line), by their kernels-line names."""
+    lines = [line for line in text.splitlines() if line.startswith(LAUNCH_LINE)]
+    if not lines:
+        raise AssertionError("the trainer printed no kernel launches")
+    return json.loads(lines[-1][len(LAUNCH_LINE):])
 
-    src, dest = os.path.join(tmp, "banner_source"), os.path.join(tmp, "banner_zips")
-    t0 = time.perf_counter()
-    banner_source(np, src, HOST_PAGES, seed)
-    source_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    n_train, n_val = dataset_tool.main(["--source", src, "--dest", dest])
-    tool_s = time.perf_counter() - t0
-    zips = {name: os.path.join(dest, name) for name in ("train.zip", "val.zip")}
-    zip_bytes = {name: os.path.getsize(path) for name, path in zips.items()}
-    if n_train + n_val != HOST_PAGES or n_val < 1:
-        raise AssertionError(f"dataset tool kept {n_train} + {n_val} of {HOST_PAGES} pages")
-    measured = LayoutDataset(zips["train.zip"], cache=False, use_native=False
-                             ).measured_max_text_tokens()
-    rec = dict(pages=HOST_PAGES, train=n_train, val=n_val, zip_bytes=zip_bytes,
-               source_s=source_s, dataset_tool_s=tool_s, T=auto_text_length(measured),
-               train_zip=zips["train.zip"], val_zip=zips["val.zip"])
-    log(f"host data: {HOST_PAGES} banner pages written in {source_s:.2f} s; python -m "
-        f"layoutdetr_tpu_torch.dataset_tool: {n_train} train / {n_val} val pages, zips "
-        f"{zip_bytes['train.zip']} + {zip_bytes['val.zip']} bytes, {tool_s:.2f} s (host clock); "
-        f"--max-text-length auto -> T={rec['T']}  [{card}]")
-    return rec
+
+def gnu_time(text: str) -> list:
+    """(wall s, peak RSS kB) of each ``/usr/bin/time -v`` (or
+    ``tools/peakrss.py``) report in ``text``, in order."""
+    walls = []
+    for line in text.splitlines():
+        if "Elapsed (wall clock) time" in line:
+            parts = [float(x) for x in line.rsplit(" ", 1)[1].split(":")]
+            walls.append(sum(x * 60 ** i for i, x in enumerate(reversed(parts))))
+    rss = [int(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+           if "Maximum resident set size" in line]
+    return list(zip(walls, rss))
 
 
 def build_fastdata() -> dict:
@@ -2746,44 +2725,118 @@ def backgrounds(zip_paths) -> list:
     return out
 
 
-def host_data_phase(torch, np, args, card, attention, bias_act_mod, tmp: str, data: dict,
+def host_data_phase(torch, np, args, card, attention, bias_act_mod, tmp: str,
                     fastdata: dict) -> dict:
-    """Slice 8's path on phase 16's zips: every background decoded by the
-    port's fastdata against PIL (decode exact, Lanczos to 256 within 1 level,
-    mean under 0.01), the ms a background and ``warm_cache`` both ways (host
-    clock), then ``train.main`` for HOST_STEPS steps through the host loader
-    with native decode (bf16, batch 16, auto T) and one request served from
-    its snapshot, with the launch counts set to 0 before the run and read
-    after the request."""
+    """Slice 8's path through ``tools/run_production_rehearsal_torch.sh``
+    at REH_PAGES=HOST_PAGES: ``production_source``, the dataset tool at
+    ``--png-compress 3``, ``train --load-patches --device-feed off`` for
+    HOST_STEPS steps (bf16, batch 16, T=256) with native decode, the
+    summary; then every background of its zips decoded by the port's
+    fastdata against PIL (decode exact, Lanczos to 256 within 1 level with a
+    mean under 0.01, on the zips' backgrounds and on four dithered
+    gradients), the ms a background and
+    ``warm_cache`` both ways (host
+    clock), and one request served from the run's snapshot. Launches: the
+    trainer process's (its log) and the request's, counted from 0."""
     import io
+    import re
     import statistics
 
     import PIL.Image
 
     from layoutdetr_tpu_torch import generate
-    from layoutdetr_tpu_torch import train as train_cli
     from layoutdetr_tpu_torch.config import GeneratorConfig
     from layoutdetr_tpu_torch.data import native
     from layoutdetr_tpu_torch.data.dataset import LayoutDataset
-    from layoutdetr_tpu_torch.training import train_loop
 
     t_phase = time.perf_counter()
-    blobs = backgrounds((data["train_zip"], data["val_zip"]))
+    root = os.path.join(tmp, "rehearsal")
+    out = os.path.join(root, "out")
+    env = dict(os.environ, REH_PAGES=str(HOST_PAGES), REH_ROOT=root, REH_OUT=out)
+    t0 = time.perf_counter()
+    # two loader workers: each decodes a batch's 1024^2 patches (1.8 GB of
+    # float32 at batch 16) and the 4 steps need 4 batches
+    proc = subprocess.run(["bash", os.path.join(ROOT, "tools", "run_production_rehearsal_torch.sh"),
+                           "--max-steps", str(HOST_STEPS), "--batch", str(args.batch), "--seed",
+                           str(args.seed), "--gpus", "1", "--workers", str(HOST_WORKERS)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=LAUNCHER_TIMEOUT_S)
+    launcher_s = time.perf_counter() - t0
+    with open(os.path.join(out, "rehearsal_summary.txt")) as f:
+        summary = f.read()
+    if proc.returncode or "rehearsal done" not in summary:
+        raise AssertionError(f"rehearsal launcher rc {proc.returncode}: "
+                             f"{(proc.stdout + proc.stderr)[-3000:]}")
+    with open(os.path.join(out, "rehearsal_train.log")) as f:
+        train_log = f.read()
+    (source, tool, trainer) = gnu_time(summary)
+    n_train, n_val = map(int, re.search(r"Wrote (\d+) train / (\d+) val", summary).groups())
+    if n_train + n_val != HOST_PAGES or n_val < 1:
+        raise AssertionError(f"dataset tool kept {n_train} + {n_val} of {HOST_PAGES} pages")
+    if not re.search(r"^Background decode: native fastdata", train_log, re.M):
+        raise AssertionError("the rehearsal's loader did not decode natively")
+    zips = {name: os.path.join(root, "zips", name) for name in ("train.zip", "val.zip")}
+    zip_bytes = {name: os.path.getsize(path) for name, path in zips.items()}
+    (run_dir,) = [os.path.join(root, "runs", d) for d in os.listdir(os.path.join(root, "runs"))]
+    records, ticks = read_run(run_dir)
+    check_ticks(records, ticks, HOST_STEPS, "host-data run")
+    snap = os.path.join(run_dir, f"network-snapshot-{HOST_STEPS * args.batch // 1000:06d}.pt")
+    with open(snap + ".gcfg.json") as f:
+        t = GeneratorConfig.from_dict(json.load(f)).max_text_length
+    with open(os.path.join(run_dir, "training_options.json")) as f:
+        patches = json.load(f)["load_patches"]
+    if t != HOST_T or not patches:
+        raise AssertionError(f"host-data run at T={t} (phase 3 checked {HOST_T}), load_patches "
+                             f"{patches}")
+    rec = dict(pages=HOST_PAGES, train=n_train, val=n_val, zip_bytes=zip_bytes,
+               source_s=source[0], source_peak_rss_kb=source[1], dataset_tool_s=tool[0],
+               dataset_tool_peak_rss_kb=tool[1], train_s=trainer[0],
+               train_peak_rss_kb=trainer[1], launcher_s=launcher_s, T=t,
+               feed_s=[r["feed_s"] for r in records])
+    log(f"host data: tools/run_production_rehearsal_torch.sh, {HOST_PAGES} pages: "
+        f"production_source {source[0]:.2f} s (peak RSS {source[1]} kB), dataset_tool "
+        f"--png-compress 3 {n_train} train / {n_val} val, zips {zip_bytes['train.zip']} + "
+        f"{zip_bytes['val.zip']} bytes, {tool[0]:.2f} s ({tool[1]} kB); train --load-patches "
+        f"--device-feed off {HOST_STEPS} steps, native decode, {trainer[0]:.2f} s ({trainer[1]} "
+        f"kB), feed s a tick {[round(x, 2) for x in rec['feed_s']]}; the launcher "
+        f"{launcher_s:.1f} s (host clock)  [{card}]")
+
+    blobs = backgrounds(zips.values())
     if len(blobs) != HOST_PAGES:
         raise AssertionError(f"{len(blobs)} backgrounds in the zips, expected {HOST_PAGES}")
+
+    def lanczos_vs_pil(img) -> tuple:
+        diff = np.abs(native.resize_lanczos(np.asarray(img), 256).astype(np.int32)
+                      - np.array(img.resize((256, 256), PIL.Image.LANCZOS)).astype(np.int32))
+        return int(diff.max()), float(diff.mean())
+
     worst_max, worst_mean = 0, 0.0
     for blob in blobs:
         img = PIL.Image.open(io.BytesIO(blob))
         dec = native.decode_png(blob)
         if dec.shape != (1024, 1024, 3) or not np.array_equal(dec, np.array(img)):
             raise AssertionError(f"native decode differs from PIL's ({dec.shape})")
-        diff = np.abs(native.resize_lanczos(dec, 256).astype(np.int32)
-                      - np.array(img.resize((256, 256), PIL.Image.LANCZOS)).astype(np.int32))
-        worst_max, worst_mean = max(worst_max, int(diff.max())), max(worst_mean, float(diff.mean()))
-    if worst_max > 1 or worst_mean >= 0.01:
-        raise AssertionError(f"native Lanczos vs PIL: max {worst_max}, mean {worst_mean}")
+        most, mean = lanczos_vs_pil(img)
+        worst_max, worst_mean = max(worst_max, most), max(worst_mean, mean)
+    # fastdata's Lanczos is PIL's fixed point (tests/test_torch_native.py);
+    # the smooth inpainting-like backgrounds above and the dithered gradients
+    # of JAX's tests load its rounding differently, so both are held
+    dithered_max, dithered_mean = 0, 0.0
+    rng = np.random.default_rng(args.seed)
+    yy, xx = np.mgrid[0:1024, 0:1024]
+    smooth = np.stack([xx * 255 // 1023, yy * 255 // 1023, (xx + yy) % 256], -1)
+    for _ in range(4):  # tests/test_torch_native.py's gradient, dithered by +-40 levels
+        img = PIL.Image.fromarray(np.clip(smooth + rng.integers(-40, 41, smooth.shape), 0,
+                                          255).astype(np.uint8))
+        most, mean = lanczos_vs_pil(img)
+        dithered_max, dithered_mean = max(dithered_max, most), max(dithered_mean, mean)
+    if worst_max > 1 or worst_mean >= 0.01 or dithered_max > 1 or dithered_mean >= 0.01:
+        raise AssertionError(f"native Lanczos vs PIL: max {worst_max}, worst mean {worst_mean} on "
+                             f"the zips' backgrounds; max {dithered_max}, worst mean "
+                             f"{dithered_mean} on dithered gradients")
     log(f"host data: {len(blobs)} backgrounds (1024^2 PNG), fastdata vs PIL: decode exact, "
-        f"Lanczos to 256^2 max {worst_max} level, worst mean {worst_mean:.5f}")
+        f"Lanczos to 256^2 max {worst_max} level (worst mean {worst_mean:.5f}); on 4 dithered "
+        f"1024^2 gradients max {dithered_max}, worst mean {dithered_mean:.5f}")
 
     def ms_per_background(fn) -> float:
         times = []
@@ -2800,87 +2853,50 @@ def host_data_phase(torch, np, args, card, attention, bias_act_mod, tmp: str, da
         PIL.Image.open(io.BytesIO(b)).resize((256, 256), PIL.Image.LANCZOS)))
     warm = {}
     for name, flag in (("native", True), ("pil", False)):
-        ds = LayoutDataset(data["train_zip"], max_text_length=data["T"], cache=True,
-                           use_native=flag)
+        ds = LayoutDataset(zips["train.zip"], max_text_length=HOST_T, cache=True, use_native=flag)
         warm[name] = ds.warm_cache()
         del ds
-    per_page = {k: v / data["train"] for k, v in warm.items()}
-    rec = dict(data, fastdata=fastdata, decode_exact=True, lanczos_max_level=worst_max,
-               lanczos_worst_mean=worst_mean, native_ms_per_background=native_ms,
+    per_page = {k: v / n_train for k, v in warm.items()}
+    rec.update(fastdata=fastdata, decode_exact=True, lanczos_max_level=worst_max,
+               lanczos_worst_mean=worst_mean, dithered_lanczos_max_level=dithered_max,
+               dithered_lanczos_worst_mean=dithered_mean, native_ms_per_background=native_ms,
                native_fused_ms_per_background=fused_ms, pil_ms_per_background=pil_ms,
-               warm_cache_s=warm, warm_cache_s_per_page=per_page,
-               warm_cache_s_at_reference_pages={k: v * REFERENCE_PAGES for k, v in per_page.items()})
+               warm_cache_s=warm, warm_cache_s_per_page=per_page)
     log(f"host data: ms a background (1024^2 PNG -> 256^2, median of {HOST_TIMING_PASSES} x "
         f"{len(blobs)}, host clock): fastdata {native_ms:.2f} (fused with the normalise "
-        f"{fused_ms:.2f}), PIL {pil_ms:.2f}; warm_cache of {data['train']} pages "
-        f"{warm['native']:.3f} s native, {warm['pil']:.3f} s PIL; derived for the reference's "
-        f"{REFERENCE_PAGES} pages: {rec['warm_cache_s_at_reference_pages']['native']:.1f} s / "
-        f"{rec['warm_cache_s_at_reference_pages']['pil']:.1f} s  [{card}]")
+        f"{fused_ms:.2f}), PIL {pil_ms:.2f}; warm_cache of {n_train} pages "
+        f"{warm['native']:.3f} s native, {warm['pil']:.3f} s PIL  [{card}]")
 
-    # the training run on the tool's zip, native decode in its host loader
-    decoders: list = []
-    real_dataset = train_loop.LayoutDataset
-
-    class RecordedDataset(real_dataset):
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            decoders.append(self.use_native)
-
-    out = os.path.join(tmp, "host_runs")
-    torch.cuda.synchronize()
-    zero_counters(attention, bias_act_mod)
-    t0 = time.perf_counter()
-    train_loop.LayoutDataset = RecordedDataset
-    try:
-        state = train_cli.main(["--outdir", out, "--data", data["train_zip"], "--batch",
-                                str(args.batch), "--bf16", "--max-text-length", "auto",
-                                "--device-feed", "off", "--metrics", "none", "--snap", "1",
-                                "--seed", str(args.seed), "--gpus", "1",
-                                "--max-steps", str(HOST_STEPS)])
-    finally:
-        train_loop.LayoutDataset = real_dataset
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    if decoders != [True]:
-        raise AssertionError(f"the run's loader decoded natively: {decoders}")
-    run_dir = os.path.join(out, os.listdir(out)[0])
-    records, ticks = read_run(run_dir)
-    check_ticks(records, ticks, HOST_STEPS, "host-data run")
-    snap = os.path.join(run_dir, f"network-snapshot-{HOST_STEPS * args.batch // 1000:06d}.pt")
-    with open(snap + ".gcfg.json") as f:
-        t = GeneratorConfig.from_dict(json.load(f)).max_text_length
-    if state.step != HOST_STEPS or t != data["T"]:
-        raise AssertionError(f"host-data run: step {state.step}, T={t} (phase 3 checked "
-                             f"{data['T']})")
-    del state
-    torch.cuda.empty_cache()
-
-    # one request served from the snapshot's G_ema
+    # one request served from the snapshot's G_ema, counted from 0
     bg = os.path.join(tmp, "host_bg.png")
     with open(bg, "wb") as f:
         f.write(blobs[0])
+    zero_counters(attention, bias_act_mod)
     (layout,) = generate.main(["--ckpt", snap, "--bg", bg, "--strings", "summer sale|shop now",
                                "--string-labels", "header|button", "--device", "cuda",
                                "--outfile", os.path.join(tmp, "host_served", "banner")])
-    launches = counters(attention, bias_act_mod)
+    served = counters(attention, bias_act_mod)
+    trained = launched(train_log)
+    launches = {k: trained[k] + served[k] for k in trained}
     # 12 attention with dropout and 48 + 48 bias_act a main step; 12
-    # deterministic a module-summary forward (G, D), an image snapshot (one
-    # a tick) and the served request; 48 bias_act forward in D's summary
+    # deterministic a module-summary forward (G, D), an image snapshot (the
+    # first tick and the last) and the served request; 48 bias_act forward
+    # in D's summary
     want = dict(fused_attention=12 * (2 + len(ticks) + 1), fused_attention_dropout=12 * HOST_STEPS,
                 bias_act=48 * HOST_STEPS + 48, bias_act_backward=48 * HOST_STEPS)
     if launches != want:
-        raise AssertionError(f"host-data run: launches {launches}, expected {want}")
+        raise AssertionError(f"host-data run: launches {launches} (the trainer's {trained}), "
+                             f"expected {want}")
     if not np.isfinite(layout.bbox).all() or not ((layout.raw > 0) & (layout.raw < 1)).all():
         raise AssertionError(f"served from the host-data snapshot: {layout.raw}")
-    rec.update(steps=HOST_STEPS, ticks=len(ticks), run_s=run_s,
-               sec_per_kimg=records[-1]["sec_per_kimg"], launches=launches,
-               served_bbox=layout.bbox[layout.mask].tolist(),
+    for path in glob.glob(os.path.join(run_dir, "*.pt")):
+        os.remove(path)
+    rec.update(steps=HOST_STEPS, ticks=len(ticks), sec_per_kimg=records[-1]["sec_per_kimg"],
+               launches=launches, served_bbox=layout.bbox[layout.mask].tolist(),
                phase_s=time.perf_counter() - t_phase)
-    log(f"host data: train.main --device-feed off --batch {args.batch} --bf16 T={t} (auto), "
-        f"{HOST_STEPS} steps, native decode in the host loader: {rec['sec_per_kimg']:.2f} sec/kimg "
-        f"(last tick), run {run_s:.1f} s; served from its snapshot: boxes "
-        f"{np.round(layout.bbox[layout.mask], 4).tolist()}; launches {launches} (as expected); "
-        f"phase {rec['phase_s']:.1f} s  [{card}]")
+    log(f"host data: {HOST_STEPS} steps at {rec['sec_per_kimg']:.2f} sec/kimg (last tick); "
+        f"served from its snapshot: boxes {np.round(layout.bbox[layout.mask], 4).tolist()}; "
+        f"launches {launches} (as expected); phase {rec['phase_s']:.1f} s  [{card}]")
     return rec
 
 
@@ -3059,6 +3075,138 @@ def hooks_phase(torch, np, args, card, attention, bias_act_mod, tmp: str, n_dryr
     return rec
 
 
+# ---------------------------------------------------------------------------
+# 18. the long-run launcher
+# ---------------------------------------------------------------------------
+
+STAB_STEPS = 2  # piece 2's (--max-steps)
+STAB_VAL_ITEMS = 128  # the launcher's val.zip
+STAB_METRICS = 2  # the launcher's --metrics: two passes of G_ema over the val items
+
+
+def stability_phase(torch, np, args, card, tmp: str) -> dict:
+    """``tools/run_stability_torch.sh`` at full width, as its user runs it:
+    (a) piece 1 builds the launcher's zips (1024 + 128 structured samples at
+    256^2) and trains in the background; ``tools/stop_stability_torch.sh``
+    stops it once the trainer's ``log.txt`` exists (its SIGTERM handler is
+    then in place): the run must end through the SIGTERM at its first tick,
+    with a snapshot and the tick's metrics; (b) piece 2 resumes with
+    ``STAB_RESUME`` for STAB_STEPS steps: ``--resume-kimg`` from the
+    snapshot's name, the restored state's sha256 (printed by the trainer
+    before its first step) equal to the file's, the kimg going on from the
+    snapshot's; (c) ``tools/stability_report.py`` on both run directories: 0
+    non-finite values; (d) each trainer process's kernel launches, from its
+    log, as scheduled."""
+    from layoutdetr_tpu_torch.utils.checkpoint import load_snapshot, snapshot_digest
+
+    t_phase = time.perf_counter()
+    out = os.path.join(tmp, "stability")
+    env = dict(os.environ, STAB_OUTDIR=out, STAB_PIDFILE=os.path.join(tmp, "stab_train.pid"))
+    script = os.path.join(ROOT, "tools", "run_stability_torch.sh")
+    extra = ["--batch", str(args.batch), "--seed", str(args.seed), "--gpus", "1"]
+
+    def runs() -> list:
+        return sorted(glob.glob(os.path.join(out, "0*")))
+
+    log1 = os.path.join(tmp, "stability_piece1.log")
+    t0 = time.perf_counter()
+    with open(log1, "w") as f:
+        proc = subprocess.Popen(["bash", script, *extra, "--max-steps", "3"], cwd=ROOT, env=env,
+                                stdout=f, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + LAUNCHER_TIMEOUT_S
+        while not glob.glob(os.path.join(out, "0*", "log.txt")):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"piece 1 wrote no log.txt (rc {proc.poll()})")
+            time.sleep(0.2)
+        to_stop_s = time.perf_counter() - t0
+        stop = subprocess.run(["bash", os.path.join(ROOT, "tools", "stop_stability_torch.sh")],
+                              env=env, capture_output=True, text=True,
+                              timeout=LAUNCHER_TIMEOUT_S)
+        rc1 = proc.wait(timeout=LAUNCHER_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    piece1_s = time.perf_counter() - t0
+    with open(log1) as f:
+        text1 = f.read()
+    if stop.returncode or rc1 or "SIGTERM: finishing tick" not in text1:
+        raise AssertionError(f"piece 1: stop rc {stop.returncode} ({stop.stdout.strip()}), "
+                             f"launcher rc {rc1}: {text1[-3000:]}")
+    (run1,) = runs()
+    records1, ticks1 = read_run(run1)
+    check_ticks(records1, ticks1, 1, "stability piece 1")  # stopped at its first tick
+    snap = os.path.join(run1, "network-snapshot-000000.pt")
+    snap_bytes = os.path.getsize(snap)
+    log(f"stability: piece 1 (the launcher's zips built, then train at full width) stopped by "
+        f"tools/stop_stability_torch.sh {to_stop_s:.1f} s in, at its first tick with "
+        f"{snap_bytes} bytes of snapshot; {piece1_s:.1f} s  [{card}]")
+
+    log2 = os.path.join(tmp, "stability_piece2.log")
+    t0 = time.perf_counter()
+    with open(log2, "w") as f:
+        rc2 = subprocess.run(["bash", script, *extra, "--max-steps", str(STAB_STEPS)], cwd=ROOT,
+                             env=dict(env, STAB_RESUME=snap), stdout=f, stderr=subprocess.STDOUT,
+                             timeout=LAUNCHER_TIMEOUT_S).returncode
+    piece2_s = time.perf_counter() - t0
+    with open(log2) as f:
+        text2 = f.read()
+    if rc2:
+        raise AssertionError(f"piece 2: launcher rc {rc2}: {text2[-3000:]}")
+    run2 = runs()[-1]
+    with open(os.path.join(run2, "training_options.json")) as f:
+        opts = json.load(f)
+    digest = snapshot_digest(load_snapshot(snap))
+    if (opts["resume"], opts["resume_kimg"]) != (snap, 0) or (
+            f"Resumed from {snap} (restored state sha256 {digest})" not in text2):
+        raise AssertionError(f"piece 2: resume {opts['resume']} at {opts['resume_kimg']} kimg, "
+                             f"the file's sha256 {digest}: {text2[-3000:]}")
+    records2, ticks2 = read_run(run2)
+    check_ticks(records2, ticks2, STAB_STEPS, "stability piece 2")
+    if [r["kimg"] for r in records2] != [args.batch / 1e3, STAB_STEPS * args.batch / 1e3]:
+        raise AssertionError(f"piece 2's kimg {[r['kimg'] for r in records2]} does not go on "
+                             f"from the snapshot's 0")
+
+    reports = []
+    for run in (run1, run2):
+        rep = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "stability_report.py"),
+                              run], capture_output=True, text=True, timeout=120)
+        if rep.returncode or "non-finite loss values: 0" not in rep.stdout:
+            raise AssertionError(f"stability_report.py {run}: {rep.stdout}{rep.stderr}")
+        reports.append(rep.stdout)
+
+    per_eval = STAB_METRICS * math.ceil(STAB_VAL_ITEMS / min(16, args.batch))
+    launches = {}
+    for name, text, run, ticks, steps in (("piece1", text1, run1, ticks1, 1),
+                                          ("piece2", text2, run2, ticks2, STAB_STEPS)):
+        evals = len(read_jsonl(os.path.join(run, "metric-layout_fid50k_val.jsonl")))
+        got = launched(text)
+        # 12 attention with dropout and 48 + 48 bias_act a main step (no reg
+        # steps); 12 deterministic a module-summary forward (G, D), an image
+        # snapshot (the first tick and the last) and a G_ema forward of the
+        # metrics; 48 bias_act forward in D's summary
+        want = dict(fused_attention=12 * (2 + len(ticks) + evals * per_eval),
+                    fused_attention_dropout=12 * steps, bias_act=48 * steps + 48,
+                    bias_act_backward=48 * steps)
+        if got != want:
+            raise AssertionError(f"stability {name}: launches {got}, expected {want} "
+                                 f"({evals} metric evaluations)")
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+    for path in glob.glob(os.path.join(out, "0*", "*.pt")):
+        os.remove(path)
+    rec = dict(piece1_s=piece1_s, stop_after_s=to_stop_s, piece2_s=piece2_s,
+               snapshot_bytes=snap_bytes, digest=digest, launches=launches,
+               sec_per_kimg=[r["sec_per_kimg"] for r in records1 + records2],
+               devmem_peak_gb=records2[-1]["devmem_peak_gb"], reports=reports,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"stability: piece 2 resumed from the snapshot (sha256 {digest[:16]}... restored bit for "
+        f"bit), {STAB_STEPS} steps at kimg {records2[-1]['kimg']}, {piece2_s:.1f} s; reports: 0 "
+        f"non-finite values; launches {launches} (as scheduled); phase {rec['phase_s']:.1f} s  "
+        f"[{card}]")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Run the port's main paths on one GPU.")
     ap.add_argument("--seed", type=int, default=0)
@@ -3131,12 +3279,11 @@ def main() -> int:
     zip_path, val_path, run_t = run_dataset(workdir.name, args.seed)
     log(f"training-run dataset: {RUN_SAMPLES} samples (and a val.zip of as many), "
         f"--max-text-length auto -> T={run_t}")
-    host_data = host_data_zips(np, workdir.name, args.seed, card)  # phase 16's
 
     # 3. kernels vs plain
     shapes = list(dict.fromkeys(serving_attention_shapes(args.batch)
                                 + run_attention_shapes(args.batch, run_t)
-                                + run_attention_shapes(args.batch, host_data["T"])
+                                + run_attention_shapes(args.batch, HOST_T)
                                 + eval_attention_shapes(args.batch, run_t)
                                 + http_attention_shapes()
                                 + layoutganpp_attention_shapes(args.batch)
@@ -3289,12 +3436,16 @@ def main() -> int:
     http = http_serving_phase(torch, np, args, card, attention, bias_act_mod, workdir.name,
                               evaluation["wide_ckpt"])
 
+    free_disk(workdir.name, "runs", "resumed", "g_t256.pt", "pt_inception.pth")
+
     # 12. the bench, slice 5's measurement path
     bench_rec = bench_phase(torch, args, card, attention, bias_act_mod)
 
     # 13. the ViT backbone, slice 6's paths, on phase 9's zips
     vit = vit_phase(torch, np, args, card, attention, bias_act_mod, workdir.name, zip_path,
                     val_path, run_t)
+
+    free_disk(workdir.name, "vit_runs", "eval_vit")
 
     # 14. LayoutGAN++, slice 6's other model family
     lgpp = layoutganpp_phase(torch, np, args, card, attention, bias_act_mod, len(enc_calls))
@@ -3304,24 +3455,33 @@ def main() -> int:
     multi = multi_gpu_phase(torch, np, args, card, attention, bias_act_mod, workdir.name, zip_path,
                             run_t, states_path)
 
+    free_disk(workdir.name, "states.pt", "reference.pt", "mg_run", "mg_resumed", "mg_spec.pt")
+
     # 16. the host data path, slice 8's: the dataset tool's zips, fastdata
     torch.cuda.empty_cache()
-    host = host_data_phase(torch, np, args, card, attention, bias_act_mod, workdir.name,
-                           host_data, fastdata)
+    host = host_data_phase(torch, np, args, card, attention, bias_act_mod, workdir.name, fastdata)
+
+    free_disk(workdir.name, "rehearsal")
 
     # 17. the driver hooks and the reference closure
     torch.cuda.empty_cache()
     hooks = hooks_phase(torch, np, args, card, attention, bias_act_mod, workdir.name,
                         len(dry_calls))
+
+    free_disk(workdir.name, "closure")
+
+    # 18. the long-run launcher: stop, resume, report
+    torch.cuda.empty_cache()
+    stab = stability_phase(torch, np, args, card, workdir.name)
     workdir.cleanup()
 
     kernels = kernel_records(attn_cases, bias_cases, serve_launches, train, run, evaluation, http,
                              bench_rec, vit, lgpp, enc_cases, multi, other_bias_cases, host,
-                             hooks)
+                             hooks, stab)
     log(json.dumps({"serving": serving, "train": train, "step_correctness": correctness,
                     "training_run": run, "evaluation": evaluation, "http_serving": http,
                     "bench": bench_rec, "vit": vit, "layoutganpp": lgpp, "multi_gpu": multi,
-                    "host_data": host, "driver_hooks": hooks,
+                    "host_data": host, "driver_hooks": hooks, "stability": stab,
                     "bias_act_encoder_cases": enc_cases,
                     "model_max_abs": err, "model_bf16_max_abs": err_bf16,
                     "model_bf16_vs_fp32_max_abs": err_bf16_fp32, "cpu_max_abs": err_cpu,
@@ -3647,7 +3807,7 @@ def largest_lrelu(cases: list) -> dict:
 def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run: dict,
                    evaluation: dict, http: dict, bench_rec: dict, vit: dict, lgpp: dict,
                    enc_cases: list, multi: dict, other_bias_cases: list, host: dict,
-                   hooks: dict) -> list:
+                   hooks: dict, stab: dict) -> list:
     """The kernels line: each kernel at its representative case (fp32,
     T=256 for attention; one fp32 step's 48 bias_act calls summed), with
     the launches of each main path that runs it (``launches_by_path``) and
@@ -3659,9 +3819,10 @@ def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run
     step runs the dropout form and both bias_act kernels; the ViT's serving,
     train step and training run with its evaluation, LayoutGAN++'s
     forwards and D backward, phase 15's ranks summed over the ranks,
-    phase 16's run with its served request, and phase 17's driver hooks
-    (``entry()`` and the dry run's ranks summed) and reference closure,
-    each a path of its own).
+    phase 16's rehearsal launcher's run with its served request, phase
+    17's driver hooks (``entry()`` and the dry run's ranks summed) and
+    reference closure, and phase 18's two stability pieces summed, each a
+    path of its own).
     bias_act's record
     also sums one LayoutGAN++ bg_encoder forward's calls
     (``per_encoder_forward``) and holds the bg_decoder's cases at the
@@ -3687,7 +3848,7 @@ def kernel_records(attn_cases, bias_cases, serve_launches: int, train: list, run
                      vit_training_run=vit["training_run"]["launches"], layoutganpp=lgpp["launches"],
                      multi_gpu=multi["launches"], host_data=host["launches"],
                      driver_hooks=hooks["launches"]["driver_hooks"],
-                     closure=hooks["launches"]["closure"])
+                     closure=hooks["launches"]["closure"], stability_run=stab["launches"])
     for path, launches in vit_paths.items():
         for k, n in launches.items():
             if n:

@@ -4,10 +4,12 @@
 // The loader's per-sample host work is zip-stored PNG decode -> Lanczos
 // resize -> ImageNet normalise. The reference does it in Python/PIL inside
 // torch DataLoader workers (training/dataset_layoutganpp.py:267-342); this
-// library does it in C++: zlib inflate, PNG unfilter and a separable
-// Lanczos-3 with PIL's uint8 intermediate, so its output is PIL's within
-// one level. It is the JAX package's native/fastdata.cpp, kept as the
-// port's own copy; the two must give the same bytes.
+// library does it in C++: zlib inflate, PNG unfilter and PIL's separable
+// Lanczos-3 in its fixed point, so its output is PIL's bit for bit. It began
+// as the JAX package's native/fastdata.cpp: the decode and the normalise
+// give that file's bytes, the resize PIL's where that file's (double
+// sums, rounded) is a level off on up to a few percent of the pixels of a
+// smooth page.
 //
 // Build (data/native.py does this at first use, into build/):
 //   g++ -O3 -shared -fPIC -o libfastdata.so fastdata.cpp -lz
@@ -130,20 +132,34 @@ int fd_decode_png(const uint8_t* buf, int64_t len, uint8_t* out,
 
 namespace {
 
-const double kLanczosA = 3.0;
-
-double lanczos(double x) {
+// PIL's Lanczos-3 (libImaging/Resample.c): sinc(x) * sinc(x / 3) on [-3, 3).
+double sinc(double x) {
     if (x == 0.0) return 1.0;
-    if (x <= -kLanczosA || x >= kLanczosA) return 0.0;
-    double px = M_PI * x;
-    return kLanczosA * std::sin(px) * std::sin(px / kLanczosA) / (px * px);
+    x = x * M_PI;
+    return std::sin(x) / x;
 }
 
-// Precompute the contribution table for one axis (PIL-style support scaling).
+double lanczos(double x) {
+    if (-3.0 <= x && x < 3.0) return sinc(x) * sinc(x / 3.0);
+    return 0.0;
+}
+
+// PIL's 8bpc fixed point: coefficients scaled by 2^22, a half added before
+// the shift, the sum clipped to [0, 255].
+const int kPrecisionBits = 32 - 8 - 2;
+
+inline uint8_t clip8(int32_t in) {
+    if (in >= (1 << kPrecisionBits << 8)) return 255;
+    if (in <= 0) return 0;
+    return (uint8_t)(in >> kPrecisionBits);
+}
+
+// The contribution table for one axis (PIL's precompute_coeffs and
+// normalize_coeffs_8bpc, box = the whole axis).
 struct Taps {
     std::vector<int> start;
     std::vector<int> size;
-    std::vector<double> weights;  // [out, max_size]
+    std::vector<int32_t> weights;  // [out, max_size]
     int max_size;
 };
 
@@ -151,26 +167,31 @@ Taps build_taps(int in_size, int out_size) {
     Taps t;
     double scale = (double)in_size / out_size;
     double filterscale = scale < 1.0 ? 1.0 : scale;
-    double support = kLanczosA * filterscale;
+    double support = 3.0 * filterscale;
+    double ss = 1.0 / filterscale;
     t.max_size = (int)std::ceil(support) * 2 + 1;
     t.start.resize(out_size);
     t.size.resize(out_size);
-    t.weights.assign((size_t)out_size * t.max_size, 0.0);
+    t.weights.assign((size_t)out_size * t.max_size, 0);
+    std::vector<double> k(t.max_size);
     for (int xx = 0; xx < out_size; ++xx) {
         double center = (xx + 0.5) * scale;
         int xmin = (int)(center - support + 0.5);
         if (xmin < 0) xmin = 0;
         int xmax = (int)(center + support + 0.5);
         if (xmax > in_size) xmax = in_size;
-        double wsum = 0.0;
         int n = xmax - xmin;
+        double ww = 0.0;
         for (int x = 0; x < n; ++x) {
-            double wgt = lanczos((x + xmin - center + 0.5) / filterscale);
-            t.weights[(size_t)xx * t.max_size + x] = wgt;
-            wsum += wgt;
+            k[x] = lanczos((x + xmin - center + 0.5) * ss);
+            ww += k[x];
         }
-        if (wsum != 0.0)
-            for (int x = 0; x < n; ++x) t.weights[(size_t)xx * t.max_size + x] /= wsum;
+        for (int x = 0; x < n; ++x) {
+            double w = ww != 0.0 ? k[x] / ww : k[x];
+            t.weights[(size_t)xx * t.max_size + x] =
+                w < 0 ? (int32_t)(-0.5 + w * (1 << kPrecisionBits))
+                      : (int32_t)(0.5 + w * (1 << kPrecisionBits));
+        }
         t.start[xx] = xmin;
         t.size[xx] = n;
     }
@@ -179,50 +200,43 @@ Taps build_taps(int in_size, int out_size) {
 
 }  // namespace
 
-// Separable Lanczos-3 resize, RGB8 in -> RGB8 out (PIL LANCZOS semantics).
+// Separable Lanczos-3 resize, RGB8 in -> RGB8 out: PIL's LANCZOS bit for
+// bit (its 8bpc pipeline: horizontal pass to a uint8 intermediate, then
+// vertical, each pass in 2^22 fixed point, rounded and clipped).
 int fd_resize_lanczos(const uint8_t* src, int sw, int sh,
                       uint8_t* dst, int dw, int dh) {
     Taps tx = build_taps(sw, dw);
     Taps ty = build_taps(sh, dh);
+    const int32_t half = 1 << (kPrecisionBits - 1);
 
-    // Horizontal pass. PIL's 8bpc pipeline rounds AND CLAMPS the
-    // intermediate to uint8 (ringing overshoot clips between passes);
-    // reproduce that for byte-parity with the reference's data loader.
     std::vector<uint8_t> tmp((size_t)sh * dw * 3);
     for (int y = 0; y < sh; ++y) {
         const uint8_t* row = src + (size_t)y * sw * 3;
         for (int x = 0; x < dw; ++x) {
-            const double* wp = &tx.weights[(size_t)x * tx.max_size];
-            double acc[3] = {0, 0, 0};
+            const int32_t* wp = &tx.weights[(size_t)x * tx.max_size];
+            int32_t acc[3] = {half, half, half};
             for (int k = 0; k < tx.size[x]; ++k) {
                 const uint8_t* px = row + (size_t)(tx.start[x] + k) * 3;
-                acc[0] += wp[k] * px[0];
-                acc[1] += wp[k] * px[1];
-                acc[2] += wp[k] * px[2];
+                acc[0] += px[0] * wp[k];
+                acc[1] += px[1] * wp[k];
+                acc[2] += px[2] * wp[k];
             }
             uint8_t* o = &tmp[((size_t)y * dw + x) * 3];
-            for (int c = 0; c < 3; ++c) {
-                double v = std::round(acc[c]);
-                o[c] = (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v);
-            }
+            for (int c = 0; c < 3; ++c) o[c] = clip8(acc[c]);
         }
     }
-    // Vertical pass.
     for (int y = 0; y < dh; ++y) {
-        const double* wp = &ty.weights[(size_t)y * ty.max_size];
+        const int32_t* wp = &ty.weights[(size_t)y * ty.max_size];
         for (int x = 0; x < dw; ++x) {
-            double acc[3] = {0, 0, 0};
+            int32_t acc[3] = {half, half, half};
             for (int k = 0; k < ty.size[y]; ++k) {
                 const uint8_t* px = &tmp[(((size_t)(ty.start[y] + k)) * dw + x) * 3];
-                acc[0] += wp[k] * px[0];
-                acc[1] += wp[k] * px[1];
-                acc[2] += wp[k] * px[2];
+                acc[0] += px[0] * wp[k];
+                acc[1] += px[1] * wp[k];
+                acc[2] += px[2] * wp[k];
             }
             uint8_t* o = dst + ((size_t)y * dw + x) * 3;
-            for (int c = 0; c < 3; ++c) {
-                double v = std::round(acc[c]);
-                o[c] = (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v);
-            }
+            for (int c = 0; c < 3; ++c) o[c] = clip8(acc[c]);
         }
     }
     return 0;

@@ -17,8 +17,9 @@ per-element PNGs), the same decode products and the same index stream:
   sliding-window swap.
 - ``PrefetchLoader``: collated numpy batches prefetched by one thread or
   by forked worker processes, re-ordered so that the stream is the same
-  for any worker count. Workers return numpy and never touch CUDA; the
-  main process copies a batch to the card (``to_device``).
+  for any worker count, without the keys the consumer never reads
+  (``drop``). Workers return numpy and never touch CUDA; the main
+  process copies a batch to the card (``to_device``).
 
 The background decode takes the port's own C++ decoder (``data/native.py``
 over ``data/csrc/fastdata.cpp``, built into ``build/`` at first use) where
@@ -32,7 +33,7 @@ import json
 import os
 import threading
 import zipfile
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -330,14 +331,20 @@ class PrefetchLoader:
     """Collated batches prefetched in the background: one thread
     (``num_workers=0``) or that many forked worker processes. Batches
     carry sequence numbers and are re-ordered, so the stream is the same
-    for any worker count. A worker's exception is re-raised by
+    for any worker count. ``drop`` names batch keys the consumer never
+    reads: the worker decodes them and leaves them out of the batch it hands
+    over (with ``load_patches`` a batch's ``patches_orig`` is 1.8 GB of
+    float32 at batch 16, which a worker process would otherwise pickle
+    through a pipe to the parent). A worker's exception is re-raised by
     ``__next__``, then and on every later call. ``close`` stops the
-    workers."""
+    workers; worker processes also die with the thread that made the loader
+    (Linux), so build it on a thread that outlives it."""
 
     def __init__(self, dataset: LayoutDataset, batch_size: int, sampler: InfiniteSampler,
-                 queue_depth: int = 2, num_workers: int = 0):
+                 queue_depth: int = 2, num_workers: int = 0, drop: Sequence[str] = ()):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.drop = tuple(drop)
         self._err: Optional[BaseException] = None
         self.num_workers = num_workers if hasattr(os, "fork") else 0
         self._it = iter(sampler)
@@ -358,7 +365,7 @@ class PrefetchLoader:
     def _thread_worker(self):
         try:
             while not self._stop.is_set():
-                self._q.put(self.dataset.collate(self._next_indices()))
+                self._q.put(_collate(self.dataset, self._next_indices(), self.drop))
         except BaseException as e:  # noqa: BLE001 - handed to the consumer, never lost
             self._q.put(_WorkerError(e))
 
@@ -370,8 +377,8 @@ class PrefetchLoader:
         ctx = mp.get_context("fork")
         self._task_q = ctx.Queue(maxsize=self.num_workers * 2 + queue_depth)
         self._result_q = ctx.Queue(maxsize=self.num_workers + queue_depth)
-        self._procs = [ctx.Process(target=_process_worker,
-                                   args=(self.dataset, self._task_q, self._result_q), daemon=True)
+        args = (self.dataset, self._task_q, self._result_q, os.getpid(), self.drop)
+        self._procs = [ctx.Process(target=_process_worker, args=args, daemon=True)
                        for _ in range(self.num_workers)]
         for p in self._procs:
             p.start()
@@ -390,11 +397,11 @@ class PrefetchLoader:
             self._result_q.put((-1, _WorkerError(e)))
 
     def close(self):
-        """Stop the prefetch thread, or terminate the worker processes, and
-        wait for them."""
+        """Stop the prefetch thread, or kill the worker processes, and wait
+        for them."""
         self._stop.set()
         for p in self._procs:
-            p.terminate()
+            p.kill()
         for p in self._procs:
             p.join(timeout=10)
         if not self._procs:
@@ -428,19 +435,45 @@ class PrefetchLoader:
         return item
 
 
-def _process_worker(dataset: LayoutDataset, task_q, result_q):
+def _collate(dataset: LayoutDataset, indices, drop) -> dict:
+    batch = dataset.collate(indices)
+    for key in drop:
+        batch.pop(key, None)
+    return batch
+
+
+def _die_with_parent(parent_pid: int) -> None:
+    """Have the kernel SIGKILL this process when the thread that forked it
+    ends (Linux's PR_SET_PDEATHSIG), or end now if the parent is already
+    gone; elsewhere nothing."""
+    import ctypes
     import signal
 
-    # the parent's handlers are inherited: terminate() must end a worker
-    signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    try:
+        ctypes.CDLL(None).prctl(1, int(signal.SIGKILL), 0, 0, 0)  # 1: PR_SET_PDEATHSIG
+    except (OSError, AttributeError):
+        return
+    if os.getppid() != parent_pid:
+        os._exit(0)
+
+
+def _process_worker(dataset: LayoutDataset, task_q, result_q, parent_pid: int, drop):
+    import signal
+
+    # A SIGTERM is the parent's to act on: a stop sent to the process group
+    # (GNU timeout signals its child and then its group) must not kill the
+    # workers under a trainer that is finishing its tick; close() kills them,
+    # and so does the parent's death, however it dies.
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
     signal.signal(signal.SIGINT, signal.SIG_IGN)
+    _die_with_parent(parent_pid)
     # fresh zip handles: the forked thread-local holds the parent's open
     # file, whose offset the two processes would share
     dataset._local = threading.local()
     while True:
         seq, idxs = task_q.get()
         try:
-            result_q.put((seq, dataset.collate(idxs)))
+            result_q.put((seq, _collate(dataset, idxs, drop)))
         except Exception as e:  # noqa: BLE001 - handed to the consumer, never lost
             import pickle
 

@@ -159,8 +159,7 @@ def _dryrun_rank(out: str, n: int, backend: str, cards: int) -> None:
     """One rank of ``dryrun_multichip``, inside its grid."""
     from layoutdetr_tpu_torch.models.discriminator import Discriminator
     from layoutdetr_tpu_torch.models.generator import Generator
-    from layoutdetr_tpu_torch.ops import attention
-    from layoutdetr_tpu_torch.ops import bias_act
+    from layoutdetr_tpu_torch.ops import attention, bias_act, launch_counts
     from layoutdetr_tpu_torch.parallel import distributed
     from layoutdetr_tpu_torch.training.optimizers import build_optimizer
     from layoutdetr_tpu_torch.training.train_step import GANTrainState, make_train_step
@@ -201,10 +200,7 @@ def _dryrun_rank(out: str, n: int, backend: str, cards: int) -> None:
     if on_card:
         torch.cuda.synchronize(dev)
     step_s = time.perf_counter() - t0
-    launches = dict(fused_attention=attention.LAUNCHES["fused_attention"],
-                    fused_attention_dropout=attention.LAUNCHES["fused_attention_dropout"],
-                    bias_act=bias_act.LAUNCHES["forward"],
-                    bias_act_backward=bias_act.LAUNCHES["backward"])
+    launches = launch_counts()
     check_replica_consistency({"G": state.G, "D": state.D, "G_ema": state.G_ema})
     losses = {k: float(v) for k, v in stats.items()}
     bad = [k for k, v in losses.items() if not np.isfinite(v)]

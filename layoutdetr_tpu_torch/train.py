@@ -53,6 +53,7 @@ import os
 import re
 import signal
 import sys
+import time
 from typing import Optional, Sequence
 
 import torch
@@ -61,6 +62,7 @@ from layoutdetr_tpu_torch.config import GeneratorConfig
 from layoutdetr_tpu_torch.training.loss import LossWeights
 
 T_BUCKETS = (16, 32, 64, 128, 256)
+TERM_REPEAT_S = 1.0  # SIGTERMs this close together are one stop request
 
 
 def auto_text_length(measured: int) -> int:
@@ -400,6 +402,28 @@ def _rank_main(opts, gcfg: GeneratorConfig, weights: LossWeights, run_dir: str) 
     _train(opts, gcfg, weights, run_dir, distributed.grid().is_chief)
 
 
+class StopRequest:
+    """The SIGTERM handler of a run: the first SIGTERM asks the loop to
+    finish its tick, snapshot and exit (``requested``); one sent
+    TERM_REPEAT_S or more later kills at once. Closer together they are
+    one stop that arrived twice: GNU timeout (``tools/run_stability_torch.sh``)
+    signals its child and then its process group, which holds the child."""
+
+    def __init__(self):
+        self.requested = False
+        self._at = 0.0
+
+    def __call__(self, signum, frame) -> None:
+        if self.requested:
+            if time.monotonic() - self._at < TERM_REPEAT_S:
+                return
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)
+            os.kill(os.getpid(), signal.SIGTERM)
+        self.requested, self._at = True, time.monotonic()
+        print("\nSIGTERM: finishing tick, snapshotting, then exiting (send again to kill now)",
+              flush=True)
+
+
 def _train(opts, gcfg: GeneratorConfig, weights: LossWeights, run_dir: str, chief: bool):
     """The training run of this process (a rank, or the whole run): rank 0
     alone keeps ``log.txt`` and runs the metrics."""
@@ -410,18 +434,8 @@ def _train(opts, gcfg: GeneratorConfig, weights: LossWeights, run_dir: str, chie
     device = torch.device(opts.device)
     metrics_fn = make_metrics_fn(opts, gcfg, run_dir) if opts.metrics and chief else None
     enable_stack_dumps()
-    # SIGTERM finishes the tick, snapshots and exits; a second one kills.
-    term = {"requested": False}
-
-    def on_term(signum, frame):
-        if term["requested"]:
-            signal.signal(signal.SIGTERM, signal.SIG_DFL)
-            os.kill(os.getpid(), signal.SIGTERM)
-        term["requested"] = True
-        print("\nSIGTERM: finishing tick, snapshotting, then exiting (send again to kill now)",
-              flush=True)
-
-    old_handler = signal.signal(signal.SIGTERM, on_term)
+    term = StopRequest()
+    old_handler = signal.signal(signal.SIGTERM, term)
     logger = Logger(os.path.join(run_dir, "log.txt")) if chief else None
     try:
         return training_loop(
@@ -434,7 +448,7 @@ def _train(opts, gcfg: GeneratorConfig, weights: LossWeights, run_dir: str, chie
             init_g=opts.init_g, init_d=opts.init_d, num_workers=opts.workers,
             device_feed=opts.device_feed, max_steps=opts.max_steps, aug=opts.aug,
             aug_p=opts.aug_p, aug_geom=opts.aug_geom, ada_target=opts.ada_target,
-            ema_rampup=0.05, ada_kimg=500.0, abort_fn=lambda: term["requested"], device=device,
+            ema_rampup=0.05, ada_kimg=500.0, abort_fn=lambda: term.requested, device=device,
             metrics_fn=metrics_fn, metric_ticks=opts.metric_ticks, load_patches=opts.load_patches)
     finally:
         if logger is not None:

@@ -32,7 +32,13 @@ of the main and the reg steps between two ticks, the stream span between
 CUDA events recorded before and after each step (the host clock on the
 CPU), is written to ``stats.jsonl`` as ``main_step_s`` and
 ``reg_step_s``. On a host-bound step that span is mostly the card
-waiting on the host, not the card's busy time.
+waiting on the host, not the card's busy time. ``feed_s`` is the host
+seconds the loop spent between ticks getting its batches and issuing
+their copies to the device (waiting on the loader included). Each line also holds
+``launches/<kernel>``, this process's launches of the two kernels so far
+(``ops.launch_counts``), which the run prints again at its end. A resume
+prints the sha256 of the restored state (``utils.checkpoint.snapshot_digest``),
+which equals the snapshot file's.
 
 Several ranks (a grid of ``parallel.distributed``, made by the caller,
 e.g. ``train.main --chips N``): the counterpart of JAX's SPMD loop
@@ -60,6 +66,7 @@ e.g. ``train.main --chips N``): the counterpart of JAX's SPMD loop
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import resource
 import sys
@@ -80,6 +87,7 @@ from layoutdetr_tpu_torch.data.dataset import (
 from layoutdetr_tpu_torch.data.device_cache import DeviceDatasetCache, gather_batch, should_enable
 from layoutdetr_tpu_torch.models.discriminator import Discriminator
 from layoutdetr_tpu_torch.models.generator import Generator
+from layoutdetr_tpu_torch.ops import launch_counts
 from layoutdetr_tpu_torch.parallel import distributed
 from layoutdetr_tpu_torch.parallel import tensor_parallel as tp
 from layoutdetr_tpu_torch.training.augment import AdaController, AugmentConfig
@@ -96,6 +104,8 @@ from layoutdetr_tpu_torch.utils.checkpoint import (
     load_state_dict_file,
     restore_checkpoint,
     save_checkpoint,
+    snapshot_digest,
+    snapshot_of,
     write_gcfg,
 )
 from layoutdetr_tpu_torch.utils.logging import StatsJsonlWriter, TensorboardWriter
@@ -331,7 +341,8 @@ def training_loop(
     state = GANTrainState.create(G, D, opt_g, opt_d)
     if resume:
         restore_checkpoint(resume, state)
-        print(f"Resumed from {resume}")
+        print(f"Resumed from {resume} (restored state sha256 "
+              f"{snapshot_digest(snapshot_of(state))})")
     share_te = _text_encoders_equal(state.G, state.D)
     print(f"Text-encoder sharing: {'ON (identical frozen weights)' if share_te else 'off'}")
 
@@ -353,7 +364,9 @@ def training_loop(
 
     loader = None
     if not use_device_feed:
-        loader = PrefetchLoader(dataset, local_batch, sampler, num_workers=num_workers)
+        # the patches are decoded (the reference's host work) but no loss reads them
+        loader = PrefetchLoader(dataset, local_batch, sampler, num_workers=num_workers,
+                                drop=("patches_orig",))
     collector = Collector()
     jsonl = StatsJsonlWriter(os.path.join(run_dir, "stats.jsonl")) if is_chief else None
     tb = TensorboardWriter(run_dir) if is_chief else None
@@ -365,6 +378,7 @@ def training_loop(
     tick_start_nimg = cur_nimg
     tick_start_time = time.time()
     maintenance_time = 0.0
+    feed_s = 0.0
     batch_idx = 0
     snap_count = 0
 
@@ -391,13 +405,13 @@ def training_loop(
 
     try:
         while True:
+            t_feed = time.perf_counter()
             if use_device_feed:
                 idx = dcache.put_indices([next(sampler_it) for _ in range(local_batch)])
                 batch = gather_batch(dcache.arrays, idx)
             else:
-                host = next(loader)
-                host.pop("patches_orig", None)  # decoded, never read by a loss
-                batch = to_device(host, device)
+                batch = to_device(next(loader), device)
+            feed_s += time.perf_counter() - t_feed
             if aug != "noaug":
                 batch["aug_p"] = cur_aug_p
             t0 = clock.mark()
@@ -439,12 +453,14 @@ def training_loop(
             extra = {"kimg": cur_nimg / 1e3, "tick": cur_tick, "sec_per_kimg": sec_per_kimg,
                      "maintenance": maintenance_time, "cpumem_gb": _cpu_mem_gb(),
                      "devmem_gb": mem_now, "devmem_peak_gb": mem_peak,
-                     "main_step_s": step_s["main"], "reg_step_s": step_s["reg"]}
+                     "main_step_s": step_s["main"], "reg_step_s": step_s["reg"],
+                     "feed_s": feed_s}
             if aug != "noaug":
                 fields.append(f"augment {cur_aug_p:.3f}")
                 extra["augment_p"] = cur_aug_p
             if ada is not None:
                 extra["ada_updates"] = ada.updates
+            extra.update({f"launches/{k}": n for k, n in launch_counts().items()})
             print(" ".join(fields))
             if is_chief:
                 jsonl.write(collector.as_dict(), extra=extra)
@@ -487,6 +503,7 @@ def training_loop(
             tick_start_nimg = cur_nimg
             tick_start_time = time.time()
             maintenance_time = tick_start_time - tick_end_time
+            feed_s = 0.0
             if done:
                 break
     finally:
@@ -494,5 +511,6 @@ def training_loop(
             loader.close()
         if tb is not None:
             tb.close()
+    print(f"Kernel launches: {json.dumps(launch_counts())}")
     print("Training done.")
     return state

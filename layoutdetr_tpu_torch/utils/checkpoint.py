@@ -27,6 +27,7 @@ reference's state-dict names, so it loads as it is).
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 from typing import Dict, Union
@@ -57,6 +58,31 @@ def snapshot_of(state) -> dict:
         snap[key] = tp.gather_optimizer_state_dict(snap[key], tp.trainable_names(module), *shard,
                                                    group)
     return snap
+
+
+def snapshot_digest(snap) -> str:
+    """sha256 over a snapshot dict's keys, values and tensors (dtype, shape
+    and bytes, copied to the host one tensor at a time): two snapshots with
+    the same digest hold the same bits. ``train --resume`` prints the
+    restored state's, to be held to the file's."""
+    h = hashlib.sha256()
+
+    def walk(key: str, x) -> None:
+        if isinstance(x, dict):
+            for k in sorted(x, key=str):
+                walk(f"{key}/{k}", x[k])
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(f"{key}/{i}", v)
+        elif isinstance(x, torch.Tensor):
+            t = x.detach().cpu().contiguous()
+            h.update(f"{key}:{t.dtype}:{tuple(t.shape)}".encode())
+            h.update(t.reshape(-1).view(torch.uint8).numpy())
+        else:
+            h.update(f"{key}={x!r}".encode())
+
+    walk("", snap)
+    return h.hexdigest()
 
 
 def save_checkpoint(path: str, state) -> None:

@@ -131,7 +131,9 @@ def test_device_cache_gather_equals_collate(zips):
 
 def test_prefetch_workers_end_on_close_under_a_sigterm_handler(zips):
     """Forked workers inherit the parent's handlers (the train CLI's SIGTERM
-    one finishes a tick instead of exiting): close() must still end them."""
+    one finishes a tick instead of exiting) and ignore SIGTERM themselves (a
+    stop sent to the process group is the trainer's): close() must still end
+    them."""
     import signal
 
     dataset = ds.LayoutDataset(zips[0], background_size=SIZE, max_text_length=T)
@@ -143,4 +145,108 @@ def test_prefetch_workers_end_on_close_under_a_sigterm_handler(zips):
         loader.close()
     finally:
         signal.signal(signal.SIGTERM, old)
-    assert all(p.exitcode == -signal.SIGTERM for p in loader._procs)
+    assert all(p.exitcode == -signal.SIGKILL for p in loader._procs)
+
+
+def test_prefetch_workers_outlive_a_sigterm_to_the_group(zips):
+    """A stop sent to the trainer's process group (GNU timeout signals its
+    child and then its group) reaches the workers too: they ignore it, and
+    the batches go on in order until the trainer closes the loader."""
+    import os
+    import signal
+    import time
+
+    dataset = ds.LayoutDataset(zips[0], background_size=SIZE, max_text_length=T)
+    want = ds.PrefetchLoader(dataset, 2, ds.InfiniteSampler(N_SAMPLES), num_workers=0)
+    want = [next(want)["labels"] for _ in range(6)]
+    loader = ds.PrefetchLoader(dataset, 2, ds.InfiniteSampler(N_SAMPLES), num_workers=2)
+    try:
+        got = [next(loader)["labels"] for _ in range(2)]
+        for p in loader._procs:
+            os.kill(p.pid, signal.SIGTERM)
+        time.sleep(0.3)  # a worker the signal ends is gone by then (no hang below)
+        assert all(p.is_alive() for p in loader._procs)
+        got += [next(loader)["labels"] for _ in range(4)]
+    finally:
+        loader.close()
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_prefetch_loader_drops_what_the_consumer_never_reads(zips, workers):
+    """``drop``: the worker decodes the batch whole and hands it over
+    without those keys; the rest is the collate stream."""
+    dataset = ds.LayoutDataset(zips[0], background_size=SIZE, max_text_length=T,
+                               load_patches=True)
+    loader = ds.PrefetchLoader(dataset, 2, ds.InfiniteSampler(N_SAMPLES, seed=4),
+                               num_workers=workers, drop=("patches_orig", "background"))
+    try:
+        got = [next(loader) for _ in range(3)]
+    finally:
+        loader.close()
+    order = iter(ds.InfiniteSampler(N_SAMPLES, seed=4))
+    for batch in got:
+        want = dataset.collate([next(order) for _ in range(2)])
+        assert set(want) - set(batch) == {"patches_orig", "background"}
+        for k in batch:
+            np.testing.assert_array_equal(batch[k], want[k], err_msg=k)
+
+
+def test_prefetch_workers_die_with_a_killed_trainer(zips, tmp_path):
+    """A trainer killed without close(), here by the second SIGTERM of the
+    CLI's handler ("send again to kill now"), leaves no loader worker
+    behind, although the workers ignore SIGTERM."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    import time
+
+    from test_torch_common import REPO_ROOT
+
+    pids = tmp_path / "pids"
+    script = f"""
+import os, signal, sys, time
+from layoutdetr_tpu_torch.data import dataset as ds
+from layoutdetr_tpu_torch.train import StopRequest
+signal.signal(signal.SIGTERM, StopRequest())
+dataset = ds.LayoutDataset({zips[0]!r}, background_size={SIZE}, max_text_length={T})
+loader = ds.PrefetchLoader(dataset, 2, ds.InfiniteSampler({N_SAMPLES}), num_workers=2)
+next(loader)
+with open({str(pids)!r} + ".tmp", "w") as f:
+    f.write(" ".join(str(p.pid) for p in loader._procs))
+os.rename({str(pids)!r} + ".tmp", {str(pids)!r})
+while True:
+    time.sleep(0.05)
+"""
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen([sys.executable, "-c", script], env=env)
+    try:
+        deadline = time.monotonic() + 60
+        while not pids.exists():
+            assert proc.poll() is None and time.monotonic() < deadline, "no loader workers"
+            time.sleep(0.05)
+        workers = [int(p) for p in pids.read_text().split()]
+        proc.send_signal(signal.SIGTERM)  # a stop request: the trainer lives on
+        time.sleep(1.5)  # past TERM_REPEAT_S: the second one kills
+        assert proc.poll() is None
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == -signal.SIGTERM
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+
+    def alive(pid: int) -> bool:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+        except FileNotFoundError:
+            return False
+
+    deadline = time.monotonic() + 10
+    while any(map(alive, workers)) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    survivors = [pid for pid in workers if alive(pid)]
+    for pid in survivors:
+        os.kill(pid, signal.SIGKILL)
+    assert not survivors, f"loader workers {survivors} outlived their trainer"

@@ -28,7 +28,7 @@ from test_torch_parallel_cli import SMALL, TIMEOUT_S, _cli, _jsonl, _run_dirs, _
 
 # what a stats line holds of the host's clock and memory
 CLOCK = ("timestamp", "sec_per_kimg", "maintenance", "cpumem_gb", "devmem_gb", "devmem_peak_gb",
-         "main_step_s", "reg_step_s")
+         "main_step_s", "reg_step_s", "feed_s")
 SNAPSHOT = "network-snapshot-000000.pt"
 
 

@@ -2,12 +2,11 @@
 ``data/csrc/fastdata.cpp``) vs the JAX package's (``native/fastdata.cpp``)
 and vs PIL.
 
-Bars: the two native decoders give the same bits (decode, resize and the
-fused normalise); against PIL, decode exact and Lanczos at most 1 level
-off with a mean under 0.01 level (``tests/test_native.py``'s bars: PIL's
-fixed-point coefficients are the only difference). The port's
-``LayoutDataset(use_native=True)`` background equals JAX's bit for bit,
-with the sample cache on and off.
+Bars: the port's decode and normalise give JAX's bits, and its Lanczos
+resize PIL's (it runs in PIL's fixed point); JAX's resize, which sums in
+double and rounds, is at most 1 level off both. The port's
+``LayoutDataset(use_native=True)`` background equals its PIL path's bit for
+bit and JAX's native one within a level, with the sample cache on and off.
 """
 
 import io
@@ -63,24 +62,31 @@ def test_native_matches_jax_bit_for_bit_and_pil(shape, mode, level):
     np.testing.assert_array_equal(dec, _rgb(arr))  # PIL's pixels, exactly
     for size in (8, 24, 64):
         got = native.resize_lanczos(dec, size)
-        np.testing.assert_array_equal(got, jax_native.resize_lanczos(dec, size))
+        pil = np.array(PIL.Image.fromarray(dec).resize((size, size), PIL.Image.LANCZOS))
+        np.testing.assert_array_equal(got, pil)
+        jax_got = jax_native.resize_lanczos(dec, size)
+        assert np.abs(got.astype(int) - jax_got.astype(int)).max() <= 1
         bg = native.load_background(data, size)
         assert bg.dtype == np.float32 and bg.shape == (size, size, 3)
-        assert np.array_equal(bg, jax_native.load_background(data, size))
         assert np.array_equal(bg, ds.normalize_image(got))
+        np.testing.assert_array_equal(ds.normalize_image(jax_got),
+                                      jax_native.load_background(data, size))
 
 
 @pytest.mark.parametrize("src,size", [((1024, 1024), 256), ((250, 300), 256), ((64, 48), 24)])
 def test_lanczos_within_a_level_of_pil(src, size):
-    """A banner background at the loader's sizes, and upscaling."""
+    """A banner background at the loader's sizes, and upscaling: the
+    port's resize is PIL's exactly, dithered or smooth (where a resize
+    that rounds double sums is a level off on up to a few percent of the
+    pixels)."""
     rng = np.random.default_rng(1)
     h, w = src
     yy, xx = np.mgrid[0:h, 0:w]
     smooth = np.stack([xx * 255 // max(w - 1, 1), yy * 255 // max(h - 1, 1), (xx + yy) % 256], -1)
     img = np.clip(smooth + rng.integers(-40, 41, (h, w, 3)), 0, 255).astype(np.uint8)
-    pil = np.array(PIL.Image.fromarray(img).resize((size, size), PIL.Image.LANCZOS))
-    diff = np.abs(pil.astype(int) - native.resize_lanczos(img, size).astype(int))
-    assert diff.max() <= 1 and diff.mean() < 0.01, (diff.max(), diff.mean())
+    for case in (img, smooth.astype(np.uint8)):
+        pil = np.array(PIL.Image.fromarray(case).resize((size, size), PIL.Image.LANCZOS))
+        np.testing.assert_array_equal(native.resize_lanczos(case, size), pil)
 
 
 def test_malformed_input_is_refused():
@@ -106,12 +112,11 @@ def test_dataset_native_background_equals_jax(zip_path, cache):
     kw = dict(background_size=32, max_text_length=16, cache=cache, use_native=True)
     port, ref = ds.LayoutDataset(zip_path, **kw), JaxDataset(zip_path, **kw)
     assert port.use_native and (port._cache is not None) == cache
+    pil = ds.LayoutDataset(zip_path, **dict(kw, use_native=False))
     for i in range(len(port)):
         a, b = port[i]["background"], ref[i]["background"]
-        assert a.dtype == b.dtype == np.float32 and np.array_equal(a, b), i
-    pil = ds.LayoutDataset(zip_path, **dict(kw, use_native=False))
-    diff = np.abs(port[0]["background"] - pil[0]["background"])
-    assert diff.max() < 2.0 / (255 * 0.224)  # <= 1 level, scaled by 1 / (255 std)
+        assert a.dtype == b.dtype == np.float32 and np.array_equal(a, pil[i]["background"]), i
+        assert np.abs(a - b).max() < 2.0 / (255 * 0.224), i  # <= 1 level, scaled by 1 / (255 std)
 
 
 def test_broken_compiler(zip_path, tmp_path, monkeypatch, capsys):

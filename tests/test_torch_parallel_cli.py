@@ -96,20 +96,30 @@ def _train_and_resume(data, outdir, model_parallel):
 
 
 def test_cli_load_patches_feeds_the_patches(data, tmp_path, monkeypatch):
-    """``--load-patches``: the host loader's batches carry the decoded
-    patches (auto turns the device feed off), for 2 steps."""
-    seen = []
-    real = port_dataset.PrefetchLoader.__next__
+    """``--load-patches``: the host loader decodes every batch's patches
+    (auto turns the device feed off) and hands the step its batches
+    without them, since no loss reads them; 2 steps, the loader on a
+    thread so that its decodes are seen here."""
+    decoded, fed = [], []
+    collate, real_next = port_dataset.LayoutDataset.collate, port_dataset.PrefetchLoader.__next__
 
-    def next_batch(self):
-        batch = real(self)
-        seen.append(batch["patches_orig"].shape)
+    def collate_batch(self, indices):
+        batch = collate(self, indices)
+        decoded.append(batch["patches_orig"].shape)
         return batch
 
+    def next_batch(self):
+        batch = real_next(self)
+        fed.append("patches_orig" in batch)
+        return batch
+
+    monkeypatch.setattr(port_dataset.LayoutDataset, "collate", collate_batch)
     monkeypatch.setattr(port_dataset.PrefetchLoader, "__next__", next_batch)
     with _snapshots_removed(tmp_path):
         state = port_train.main(["--outdir", str(tmp_path), "--data", data, "--batch", "2",
                                  "--device", "cpu", "--load-patches", "--max-steps", "2",
-                                 "--snap", "1", *SMALL])
+                                 "--snap", "1", "--workers", "0", *SMALL])
     assert state.step == 2
-    assert seen == [(2, 9, 32, 32, 3)] * 2  # the synthetic zip's 32^2 patches
+    batches = [shape for shape in decoded if shape[0] == 2]
+    assert len(batches) >= 2 and set(batches) == {(2, 9, 32, 32, 3)}  # the zip's 32^2 patches
+    assert fed == [False] * 2
