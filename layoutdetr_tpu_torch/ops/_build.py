@@ -70,8 +70,9 @@ def _compile(src: str, compiler: str, flags: Sequence[str], libs: Sequence[str] 
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [compiler, *flags, "-o", tmp, src, *libs]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    with open(out + ".log", "w") as f:
+    with open(tmp + ".log", "w") as f:
         f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    os.replace(tmp + ".log", out + ".log")
     if proc.returncode != 0:
         raise RuntimeError(f"{os.path.basename(compiler)} failed on {os.path.basename(src)}:\n"
                            f"{proc.stderr}")

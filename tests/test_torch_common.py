@@ -8,6 +8,7 @@ outputs are compared by max-abs difference.
 
 import ast
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -44,6 +45,53 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def jax_native_command():
+    """The JAX package's build of its native decoder, read from its source
+    (``layoutdetr_tpu/data/native.py``, ``_build``): ``(compiler, flags,
+    libs)`` around ``-o <lib> <src>``."""
+    from layoutdetr_tpu.data import native as jax_native
+
+    build = next(n for n in ast.parse(inspect.getsource(jax_native)).body
+                 if isinstance(n, ast.FunctionDef) and n.name == "_build")
+    call = next(n for n in ast.walk(build)
+                if isinstance(n, ast.List) and n.elts and isinstance(n.elts[0], ast.Constant))
+    words = [e.value if isinstance(e, ast.Constant) else e.id for e in call.elts]
+    out, src = words.index("_SO"), words.index("_SRC")
+    assert words[out - 1] == "-o" and src == out + 1, words
+    return words[0], tuple(words[1:out - 1]), tuple(words[src + 1:])
+
+
+@pytest.fixture(scope="module")
+def jax_native_private():
+    """The JAX package's native decoder loaded from a private build of its
+    own source, for the length of a port test module; returns its path.
+
+    JAX's loader compiles ``native/libfastdata.so`` in place once a process
+    finds it missing or older than its source, and tries once a process.
+    Test workers load it at once while they collect (``tests/test_native.py``
+    asks at import), so one of them can open a file another is still
+    writing ("file too short") and then has no JAX decoder for its whole
+    life. Here the same source and command go through the port's
+    ``_build._compile`` (a temporary file and ``os.replace``, named by a
+    hash under ``build/kernels/``), so the bits are JAX's and no test
+    process reads a half-written library."""
+    from layoutdetr_tpu.data import native as jax_native
+    from layoutdetr_tpu_torch.ops import _build
+
+    compiler, flags, libs = jax_native_command()
+    path = _build._compile(jax_native._SRC, compiler, flags, libs)
+    if os.path.getmtime(path) < os.path.getmtime(jax_native._SRC):
+        # a library reused after a checkout touched the source is still its
+        # build; left older, JAX's loader would rebuild it in place
+        os.utime(path)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_SO", path)
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_tried", False)
+        assert jax_native.available(), path
+        yield path
 
 
 def to_numpy_tree(tree):
@@ -204,3 +252,20 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                           cwd=tmp_path, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_port_tests_reach_jax_native_only_through_the_private_build():
+    """A port test module that reaches the JAX package's native decoder (its
+    module, or its dataset, which asks the decoder when ``use_native`` is
+    left to it) uses ``jax_native_private``."""
+    here = os.path.dirname(__file__)
+    reach = ("layoutdetr_tpu.data import native", "layoutdetr_tpu.data.native", "JaxDataset(")
+    users = []
+    for name in sorted(os.listdir(here)):
+        if name.startswith(("test_torch_", "_torch_")) and name.endswith(".py"):
+            with open(os.path.join(here, name)) as f:
+                text = f.read()
+            if any(r in text for r in reach) and name != "test_torch_common.py":
+                users.append(name)
+                assert "jax_native_private" in text, name
+    assert "test_torch_native.py" in users and "test_torch_evaluate.py" in users, users

@@ -38,6 +38,7 @@ from layoutdetr_tpu_torch.utils.convert import (
 )
 
 from test_torch_common import load_port, random_params, tiny_configs
+from test_torch_common import jax_native_private  # noqa: F401 (module-scoped fixture)
 from test_torch_common import one_torch_thread  # noqa: F401 (module-scoped autouse fixture)
 from test_torch_inception import inception_params
 
@@ -59,7 +60,7 @@ def _jax_z_draws(seed, shape):
 
 
 @pytest.fixture(scope="module")
-def case(tmp_path_factory):
+def case(tmp_path_factory, jax_native_private):  # noqa: F811
     d = tmp_path_factory.mktemp("eval")
     zip_path = make_synthetic_zip(str(d / "val.zip"), num_samples=6, image_size=32, max_elements=3)
     jcfg, cfg = tiny_configs(vocab_size=30524, bos_token_id=30522)

@@ -4,7 +4,8 @@ same inputs, random JAX params crossed over, G and D at ``reconst=True``
 and one deterministic train step, every output within the driver's bars
 (and here within 1e-5, the tiny-dims bar of the other port tests); then
 the ViT G and D (the ViT patched to width 16, depth 2 on both sides, as in
-test_torch_vit.py) and the LayoutGAN++ pair."""
+test_torch_vit.py), the LayoutGAN++ pair, and a JAX train state carried
+into the port through ``tools/orbax_to_port.py`` (the orbax case)."""
 
 import pytest
 
@@ -47,3 +48,19 @@ def test_new_models_compare_at_tiny_dims(narrow_vit, model, first):
     assert all(r["ok"] for r in rows), driver.table(rows)
     worst = {r["name"]: r["max_abs"] for r in rows if r["max_abs"] > 1e-5 * max(1.0, r["scale"])}
     assert not worst, worst
+
+
+def test_orbax_case_at_tiny_dims():
+    rows = driver.compare_models(["orbax"], DIMS, LGPP_DIMS, log=lambda s: None)
+    names = [r["name"].split(" (")[0].split(",")[0] for r in rows]
+    assert names == ["orbax G tensors off the converter's bits",
+                     "orbax D tensors off the converter's bits",
+                     "orbax G_ema tensors off the converter's bits",
+                     "orbax next update G", "orbax next update D",
+                     "orbax opt_g entries unlike a port step's",
+                     "orbax opt_d entries unlike a port step's",
+                     "orbax G_ema boxes", "orbax G_ema boxes"], names
+    assert all(r["ok"] for r in rows), driver.table(rows)
+    assert rows[-1]["name"] == "orbax G_ema boxes (--generator-only)"
+    assert all(r["max_abs"] <= 1e-5 * max(1.0, r["scale"]) for r in rows[-2:]), driver.table(rows)
+    assert min(r["scale"] for r in rows[:3] + rows[5:7]) > 10  # tensors and entries counted

@@ -34,6 +34,7 @@ from layoutdetr_tpu_torch.serving import render
 from layoutdetr_tpu_torch.utils.convert import layoutnet_state_dict_from_jax
 
 from test_torch_common import assert_max_abs, load_port, random_params
+from test_torch_common import jax_native_private  # noqa: F401 (module-scoped fixture)
 from test_torch_common import one_torch_thread  # noqa: F401 (module-scoped autouse fixture)
 
 TOL = 1e-5
@@ -163,7 +164,7 @@ def test_render_banner_matches_jax(tmp_path):
     assert again.size == bg.size
 
 
-def test_dataset_patches_and_original_background_match_jax(tmp_path):
+def test_dataset_patches_and_original_background_match_jax(tmp_path, jax_native_private):  # noqa: F811
     path = make_synthetic_zip(str(tmp_path / "val.zip"), num_samples=3, image_size=48,
                               max_elements=3, seed=5)
     kw = dict(background_size=32, max_text_length=16, load_patches=True, load_background_orig=True)

@@ -7,10 +7,17 @@ resize PIL's (it runs in PIL's fixed point); JAX's resize, which sums in
 double and rounds, is at most 1 level off both. The port's
 ``LayoutDataset(use_native=True)`` background equals its PIL path's bit for
 bit and JAX's native one within a level, with the sample cache on and off.
+
+JAX's side is a private build of its own source with its own command
+(``jax_native_private``), never the ``native/libfastdata.so`` that JAX's
+loader compiles in place while other test processes load it.
 """
 
 import io
 import os
+import subprocess
+import sys
+import time
 
 import numpy as np
 import PIL.Image
@@ -23,8 +30,11 @@ from layoutdetr_tpu_torch.data import native
 from layoutdetr_tpu_torch.data.synthetic import make_synthetic_zip
 from layoutdetr_tpu_torch.ops import _build
 
-from test_torch_common import REPO_ROOT
+from test_torch_common import REPO_ROOT, jax_native_command
+from test_torch_common import jax_native_private  # noqa: F401 (module-scoped fixture)
 from test_torch_common import one_torch_thread  # noqa: F401 (module-scoped autouse fixture)
+
+pytestmark = pytest.mark.usefixtures("jax_native_private")
 
 CASES = [((21, 33, 3), "RGB"), ((90, 728, 3), "RGB"), ((16, 16), "L"), ((37, 29, 4), "RGBA"),
          ((12, 40, 2), "LA")]
@@ -49,6 +59,57 @@ def test_library_builds_from_the_ports_source_into_build():
     assert os.path.dirname(path) == _build.BUILD_DIR
     assert os.path.basename(path).startswith("libfastdata-") and path.endswith(".so")
     assert not os.path.samefile(native.SRC, os.path.join(REPO_ROOT, "native", "fastdata.cpp"))
+
+
+def test_jax_side_is_a_private_build_of_jax_source(jax_native_private):  # noqa: F811
+    """The JAX decoder these tests load sits under ``build/kernels/``, was
+    built from ``native/fastdata.cpp`` by JAX's own command, and is not
+    ``native/libfastdata.so``."""
+    path = jax_native_private
+    assert jax_native._SO == path and jax_native._lib._name == path
+    assert os.path.dirname(path) == _build.BUILD_DIR
+    jax_src = os.path.join(REPO_ROOT, "native", "fastdata.cpp")
+    assert os.path.samefile(jax_native._SRC, jax_src)
+    so = os.path.join(REPO_ROOT, "native", "libfastdata.so")
+    assert not os.path.exists(so) or not os.path.samefile(path, so)
+    compiler, flags, libs = jax_native_command()
+    assert (compiler, flags, libs) == ("g++", ("-O3", "-shared", "-fPIC"), ("-lz",))
+    with open(path + ".log") as f:
+        cmd = f.readline().split()
+    out = cmd.index("-o")
+    assert cmd[:out] == [compiler, *flags] and cmd[out + 2:] == [jax_native._SRC, *libs], cmd
+    assert cmd[out + 1].startswith(path + "."), cmd  # the temporary file os.replace moved
+
+
+_BUILD_AND_LOAD = """
+import ctypes, sys, time
+sys.path.insert(0, sys.argv[1])
+from layoutdetr_tpu_torch.ops import _build
+_build.BUILD_DIR = sys.argv[2]
+while time.time() < float(sys.argv[3]):
+    pass
+path = _build._compile(sys.argv[4], "g++", tuple(sys.argv[5:-1]), (sys.argv[-1],))
+ctypes.CDLL(path).fd_decode_png
+print(path)
+"""
+
+
+@pytest.mark.parametrize("which", ["jax", "port"])
+def test_processes_building_at_once_all_load_the_library(which, tmp_path):
+    """Six processes compile one source into one empty build directory at
+    the same moment, as test workers do; each loads a whole library (the
+    race JAX's in-place build loses: "file too short")."""
+    src = jax_native._SRC if which == "jax" else native.SRC
+    compiler, flags, libs = jax_native_command()
+    start = time.time() + 1.0
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_AND_LOAD, REPO_ROOT, str(tmp_path),
+                               str(start), src, *flags, *libs], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for _ in range(6)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [err[-300:] for _, err in outs]
+    assert len({out.strip() for out, _ in outs}) == 1
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        [os.path.basename(outs[0][0].strip()) + e for e in ("", ".log")])
 
 
 @pytest.mark.parametrize("level", [0, 6])

@@ -22,25 +22,19 @@ import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
 
 from layoutdetr_tpu.models.discriminator import Discriminator as JaxDiscriminator
 from layoutdetr_tpu.models.generator import Generator as JaxGenerator
 from layoutdetr_tpu.models.layoutnet import LayoutNet as JaxLayoutNet
-from layoutdetr_tpu.training import optimizers as jax_opt
-from layoutdetr_tpu.training import train_step as jax_step
 from layoutdetr_tpu.utils import checkpoint as jax_ckpt
 from layoutdetr_tpu_torch.config import GeneratorConfig
 from layoutdetr_tpu_torch.data.synthetic import make_synthetic_zip
 from layoutdetr_tpu_torch.data.tokenizer import LayoutTokenizer
 from layoutdetr_tpu_torch.evaluate import load_layoutnet_state_dict
-from layoutdetr_tpu_torch.models.discriminator import Discriminator
-from layoutdetr_tpu_torch.models.generator import Generator
 from layoutdetr_tpu_torch.models.inception import load_inception_params
 from layoutdetr_tpu_torch.models.layoutnet import LayoutNet
 from layoutdetr_tpu_torch.training import train_loop
-from layoutdetr_tpu_torch.training.optimizers import build_optimizer
-from layoutdetr_tpu_torch.training.train_step import GANTrainState, make_train_step
+from layoutdetr_tpu_torch.training.train_step import make_train_step
 from layoutdetr_tpu_torch.utils import checkpoint as ckpt
 from layoutdetr_tpu_torch.utils.convert import (
     discriminator_state_dict_from_jax,
@@ -59,26 +53,19 @@ from test_torch_vit import VIT_CFG, narrow_vit  # noqa: F401 (fixture)
 sys.path.insert(0, os.path.join(REPO_ROOT, "tools"))
 import orbax_to_port  # noqa: E402
 
-GLR, DLR = 2e-5, 3e-5  # the run's training_options.json, which the tool reads
-PL_MEAN = 0.375
+from _torch_full_dims_driver import (  # noqa: E402
+    DLR,
+    GLR,
+    PL_MEAN,
+    jax_train_state,
+    port_train_state,
+    save_jax_run,
+    seeded_grads,
+)
 
 
 def _np(tree):
     return jax.tree.map(np.asarray, jax.device_get(tree))
-
-
-def _grads(tree, seed):
-    """Seeded gradients in the weights' layout; zero on the FrozenBN
-    statistics, which JAX's modules stop the gradient at (the port holds
-    them as buffers)."""
-    rng = np.random.default_rng(seed)
-
-    def leaf(path, x):
-        g = rng.normal(scale=0.01, size=np.shape(x)).astype(np.float32)
-        parent = str(getattr(path[-2], "key", "")) if len(path) > 1 else ""
-        return 0 * g if parent.startswith("bn") or parent == "downsample_bn" else g
-
-    return jax.tree_util.tree_map_with_path(leaf, tree)
 
 
 def _jax_state(jcfg, seed=0):
@@ -90,38 +77,13 @@ def _jax_state(jcfg, seed=0):
                        bbox_real=batch["bboxes"], reconst=True, **kw, seed=seed)
     pd = random_params(JaxDiscriminator(jcfg), bbox=batch["bboxes"], reconst=True, **kw,
                        seed=seed + 1)
-    vg, vd = {"params": pg}, {"params": pd}
-    tx_g = jax_opt.build_optimizer(vg, lr=GLR, reg_interval=4,
-                                   frozen_substrings=jax_opt.G_FROZEN_SUBSTRINGS)
-    tx_d = jax_opt.build_optimizer(vd, lr=DLR, reg_interval=16,
-                                   frozen_substrings=jax_opt.D_FROZEN_SUBSTRINGS)
-    state = jax_step.GANTrainState.create(vg, vd, tx_g, tx_d)
-    ug, og = jax.jit(tx_g.update)(_grads(vg, 11), state.opt_state_g, vg)
-    ud, od = jax.jit(tx_d.update)(_grads(vd, 12), state.opt_state_d, vd)
-    state = state.replace(params_g=optax.apply_updates(vg, ug), params_d=optax.apply_updates(vd, ud),
-                          opt_state_g=og, opt_state_d=od, pl_mean=jnp.float32(PL_MEAN),
-                          step=jnp.int32(1))
-    return state, tx_g, tx_d
+    return jax_train_state(pg, pd)
 
 
 def _save(state, jcfg, run_dir):
     """The JAX trainer's files: the orbax snapshot, its .gcfg.json and the
     run's training_options.json."""
-    os.makedirs(run_dir, exist_ok=True)
-    src = os.path.join(run_dir, "network-snapshot-000000")
-    jax_ckpt.save_checkpoint(src, state)
-    with open(src + ".gcfg.json", "w") as f:
-        json.dump(dataclasses.asdict(jcfg), f)
-    with open(os.path.join(run_dir, "training_options.json"), "w") as f:
-        json.dump({"glr": GLR, "dlr": DLR, "batch_size": B}, f)
-    return src
-
-
-def _port_state(cfg):
-    torch.manual_seed(5)
-    G, D = Generator(cfg), Discriminator(cfg)
-    return GANTrainState.create(G.train(), D.train(), build_optimizer(G, lr=GLR, reg_interval=4),
-                                build_optimizer(D, lr=DLR, reg_interval=16))
+    return save_jax_run(state, jcfg, run_dir, batch_size=B)
 
 
 @pytest.fixture(scope="module")
@@ -146,7 +108,7 @@ def _assert_state_dict_equal(got, want, what):
 
 def test_train_state_restores_strictly_into_the_port(converted):
     c = converted
-    pstate = ckpt.restore_checkpoint(c["dest"], _port_state(c["cfg"]))
+    pstate = ckpt.restore_checkpoint(c["dest"], port_train_state(c["cfg"]))
     np_state = _np(c["state"])
     for key, sd_fn, params in (("G", generator_state_dict_from_jax, np_state.params_g),
                                ("D", discriminator_state_dict_from_jax, np_state.params_d),
@@ -159,7 +121,7 @@ def test_train_state_restores_strictly_into_the_port(converted):
         assert GeneratorConfig.from_dict(json.load(f)) == c["cfg"]
 
     # a port snapshot after one port step holds the same Adam entries
-    stepped = _port_state(c["cfg"])
+    stepped = port_train_state(c["cfg"])
     make_train_step(batch_size=B, z_dim=4, max_elements=N, deterministic=True)(
         stepped, _torch(_batch()), torch.Generator().manual_seed(0))
     want = ckpt.snapshot_of(stepped)
@@ -186,11 +148,11 @@ def test_next_update_agrees_with_optax(converted, module):
     params = state.params_g if module == "G" else state.params_d
     opt_state = state.opt_state_g if module == "G" else state.opt_state_d
     to_sd = generator_state_dict_from_jax if module == "G" else discriminator_state_dict_from_jax
-    grads = _grads(params, 21)
+    grads = seeded_grads(params, 21)
     updates, _ = jax.jit(tx.update)(grads, opt_state, params)
     want = to_sd(_np(optax.apply_updates(params, updates)), cfg)
 
-    pstate = ckpt.restore_checkpoint(c["dest"], _port_state(cfg))
+    pstate = ckpt.restore_checkpoint(c["dest"], port_train_state(cfg))
     model, opt = (pstate.G, pstate.opt_g) if module == "G" else (pstate.D, pstate.opt_d)
     port_grads = to_sd(_np(grads), cfg)
     n_stepped = 0
@@ -278,7 +240,7 @@ def test_vit_train_state_converts(narrow_vit, tmp_path):  # noqa: F811 (fixture)
     src = _save(state, jcfg, str(tmp_path / "run"))
     dest = str(tmp_path / "snapshot.pt")
     orbax_to_port.main(["--src", src, "--dest", dest])
-    pstate = ckpt.restore_checkpoint(dest, _port_state(cfg))
+    pstate = ckpt.restore_checkpoint(dest, port_train_state(cfg))
     np_state = _np(state)
     _assert_state_dict_equal(pstate.G.state_dict(),
                              generator_state_dict_from_jax(np_state.params_g, cfg), "vit G")
