@@ -1,0 +1,8 @@
+"""The card's idle share while it trains: 1 - device busy time / wall time of a
+stretch of steps traced with the device activity alone, %."""
+
+from benchmark.harness import readers
+
+
+def read(probe):
+    return readers.idle_pct(probe)

@@ -1,0 +1,7 @@
+"""torch.cuda.max_memory_allocated() over the window of served requests, GiB."""
+
+from benchmark.harness import readers
+
+
+def read(probe):
+    return readers.peak_gib(probe)
