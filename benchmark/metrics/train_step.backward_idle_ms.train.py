@@ -1,0 +1,10 @@
+"""The card's idle time in autograd's backward in Gmain and Dmain, ms a
+step: the device-only stretch's idle times the share of the fully profiled
+stretch's idle within the port's train_step.backward span
+(``spans.idle_ms``)."""
+
+from benchmark.harness import spans
+
+
+def read(probe):
+    return spans.idle_ms(probe, ["train_step.backward"])

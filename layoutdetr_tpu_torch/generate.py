@@ -43,6 +43,7 @@ from layoutdetr_tpu_torch.serving.postprocess import (
     save_bboxes_with_background,
 )
 from layoutdetr_tpu_torch.utils.checkpoint import load_generator_checkpoint as load_generator
+from layoutdetr_tpu_torch.utils.profiling import span
 
 MAX_N = 9
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -146,27 +147,36 @@ def generate_layouts(model: Generator, requests: Sequence[LayoutRequest], *, see
                      jitter_strength: float = 0.0, postprocessing: str = "none") -> list:
     """Serve ``requests`` as one batch on ``device`` (where ``model`` lives).
 
-    Returns one ``Layout`` per request."""
-    cfg = model.cfg
-    if tokenizer is None:
-        tokenizer = LayoutTokenizer(max_length=cfg.max_text_length, length_clip=cfg.text_len_table)
-    batch = encode_requests(requests, cfg, tokenizer, seed)
-    inputs = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}
-    inputs["text_ids"] = inputs["text_ids"].long()
-    inputs["text_len"] = inputs["text_len"].long()
+    Returns one ``Layout`` per request. The call runs as five spans in turn
+    (``utils.profiling.span``): ``generate.encode``, ``.upload``,
+    ``.forward``, ``.download`` and ``.postprocess``."""
+    with span("generate.encode"):
+        cfg = model.cfg
+        if tokenizer is None:
+            tokenizer = LayoutTokenizer(max_length=cfg.max_text_length,
+                                        length_clip=cfg.text_len_table)
+        batch = encode_requests(requests, cfg, tokenizer, seed)
+    with span("generate.upload"):
+        inputs = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}
+        inputs["text_ids"] = inputs["text_ids"].long()
+        inputs["text_len"] = inputs["text_len"].long()
     with torch.inference_mode():
-        raw = model(bbox_real=None, **inputs).cpu().numpy()
+        with span("generate.forward"):
+            out = model(bbox_real=None, **inputs)
+        with span("generate.download"):
+            raw = out.cpu().numpy()
 
-    layouts = []
-    for i in range(len(requests)):
-        mask = ~batch["padding_mask"][i]
-        bbox = raw[i:i + 1]
-        if jitter_strength > 0.0:
-            bbox = jitter(bbox, jitter_strength, seed=0)
-        bbox, alignment = apply_postprocessing(bbox, mask[None], postprocessing,
-                                               np.random.RandomState(seed + i))
-        layouts.append(Layout(bbox=bbox[0], raw=raw[i], mask=mask,
-                              labels=batch["bbox_class"][i], alignment=alignment))
+    with span("generate.postprocess"):
+        layouts = []
+        for i in range(len(requests)):
+            mask = ~batch["padding_mask"][i]
+            bbox = raw[i:i + 1]
+            if jitter_strength > 0.0:
+                bbox = jitter(bbox, jitter_strength, seed=0)
+            bbox, alignment = apply_postprocessing(bbox, mask[None], postprocessing,
+                                                   np.random.RandomState(seed + i))
+            layouts.append(Layout(bbox=bbox[0], raw=raw[i], mask=mask,
+                                  labels=batch["bbox_class"][i], alignment=alignment))
     return layouts
 
 

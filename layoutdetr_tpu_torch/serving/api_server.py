@@ -8,10 +8,10 @@ e2e_pipeline/api_server.py: ``/upload`` :85-109, ``/prediction``
   ``utils.checkpoint.load_generator_checkpoint``) on the serving device,
   with its tokenizer, loaded once per (checkpoint, device, dtype);
 - ``generate_banners``: one batched forward for ``numResults`` seeds
-  (seeds 1..numResults, z of seed s from ``RandomState(s).randn(9,
-  z_dim)``, so that on the same weights the boxes are the JAX server's)
-  under ``torch.inference_mode()``, where the text encoder runs the fused
-  attention kernel; then per seed, from the seed's ``RandomState``, jitter
+  through ``generate.generate_layouts`` (seeds 1..numResults, z of seed s
+  from ``RandomState(s).randn(9, z_dim)``, so that on the same weights the
+  boxes are the JAX server's) under ``torch.inference_mode()``, where the
+  text encoder runs the fused attention kernel; then per seed, from the seed's ``RandomState``, jitter
   (probability 5/6) and center alignment (2/3), the overlap metric, a
   ranking by overlap and a banner rendered as an image and an HTML page;
 - the four handlers and ``ROUTES``, served by the stdlib ``http.server``
@@ -51,13 +51,12 @@ import torch
 
 from layoutdetr_tpu_torch.data.dataset import normalize_image
 from layoutdetr_tpu_torch.data.tokenizer import LayoutTokenizer
+from layoutdetr_tpu_torch.generate import DTYPES, MAX_N, LayoutRequest, generate_layouts
 from layoutdetr_tpu_torch.metrics.layout_metrics import compute_overlap
 from layoutdetr_tpu_torch.serving.postprocess import LABEL2INDEX, apply_postprocessing, jitter
 from layoutdetr_tpu_torch.serving.render import make_browser, rerender_html_pil, visualize_banner
 from layoutdetr_tpu_torch.utils.checkpoint import load_generator_checkpoint
 
-MAX_N = 9
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 THUMB = (600, 400)  # /update's thumbnail resolution (api_server.py:198)
 
 # (checkpoint, device, dtype) -> (Generator on the device, its tokenizer)
@@ -95,37 +94,28 @@ def generate_banners(ckpt: str, background_img: PIL.Image.Image, elements, num_r
     """Seeds ``seed_base..seed_base+num_results-1`` in one forward, post-
     processed, ranked by overlap (ascending) and rendered (reference
     generate_util.py:353-463). Returns one dict per banner: ``seed``,
-    ``overlap``, ``image`` and ``html`` paths."""
+    ``overlap``, ``image`` and ``html`` paths. The forward is
+    ``generate.generate_layouts`` over the page ``num_results`` times from
+    ``seed_base`` (layout i's noise from ``RandomState(seed_base + i)``), so
+    a profile shows its spans ``generate.encode``, ``.upload``, ``.forward``,
+    ``.download`` and ``.postprocess``."""
     model, tok = load_model(ckpt, device, dtype)
-    cfg = model.cfg
+    size = model.cfg.background_size
     output_dir = output_dir or tempfile.mkdtemp(prefix="banners_")
     os.makedirs(output_dir, exist_ok=True)
-
-    texts = [e.get("text", "") for e in elements]
-    if not 0 < len(texts) <= MAX_N:
-        raise ValueError(f"need 1..{MAX_N} elements, got {len(texts)}")
-    labels = [LABEL2INDEX.get(e.get("type", "body text"), 3) for e in elements]
-    n_real = len(texts)
-    labels_p = np.array(labels + [0] * (MAX_N - n_real), np.int64)
-    mask = np.arange(MAX_N) < n_real
-    bg = np.array(background_img.resize((cfg.background_size,) * 2, PIL.Image.LANCZOS))
-    text_ids, text_mask, text_len = tok.encode_layouts([texts + [""] * (MAX_N - n_real)])
-
-    seeds = list(range(seed_base, seed_base + num_results))
-    z = np.stack([np.random.RandomState(s).randn(MAX_N, cfg.z_dim) for s in seeds])
-    z = z.astype(np.float32)
-    per_request = dict(bbox_class=labels_p[None], text_ids=text_ids.astype(np.int64),
-                       text_mask=text_mask, text_len=text_len.astype(np.int64),
-                       padding_mask=~mask[None], background=normalize_image(bg)[None])
-    inputs = {k: np.repeat(v, num_results, axis=0) for k, v in per_request.items()}
-    inputs = {k: torch.from_numpy(v).to(device) for k, v in dict(inputs, z=z).items()}
-    with torch.inference_mode():
-        bboxes = model(bbox_real=None, **inputs).float().cpu().numpy()
+    if not 0 < len(elements) <= MAX_N:
+        raise ValueError(f"need 1..{MAX_N} elements, got {len(elements)}")
+    request = LayoutRequest(
+        background=normalize_image(np.array(background_img.resize((size, size), PIL.Image.LANCZOS))),
+        strings=[e.get("text", "") for e in elements],
+        labels=[LABEL2INDEX.get(e.get("type", "body text"), 3) for e in elements])
+    layouts = generate_layouts(model, [request] * num_results, seed=seed_base, device=device,
+                               tokenizer=tok)
 
     variants = []
-    for i, seed in enumerate(seeds):
+    for seed, layout in zip(range(seed_base, seed_base + num_results), layouts):
         rng = np.random.RandomState(seed)
-        bbox = bboxes[i:i + 1]
+        bbox, mask = layout.raw[None], layout.mask
         if rng.random_sample() < 5 / 6:  # api_server.py:165-168
             bbox = jitter(bbox, 0.2, seed)
         mode = "horizontal_center_aligned" if rng.random_sample() < 2 / 3 else "none"

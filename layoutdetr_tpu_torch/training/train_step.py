@@ -20,10 +20,15 @@ training_loop.py:274-332). One call of the main step:
    skipping frozen parameters (their lerp is the identity: they never
    move and started equal).
 
-Each part runs inside a ``torch.profiler.record_function`` range named
+Each part runs inside a span (``utils.profiling.span``) named
 ``train_step.<part>`` (text, Gmain, G_adam, Dmain, D_adam, ema), so a
-profiled step shows where its time goes; outside a profiler a range
-costs a few microseconds of host time.
+profiled step shows where its time goes. Inside Gmain and Dmain,
+``train_step.forward`` holds the loss's forward and ``train_step.backward``
+its ``autograd.grad`` (the kernels autograd's device thread launches meanwhile
+count there by launch time); inside G_adam and D_adam,
+``train_step.sanitize`` holds ``_sanitize``, beside torch's own
+``Optimizer.step#Adam.step``. When no profiler records, a span costs one
+flag check.
 
 Data parallelism (``parallel.distributed``): each rank runs the step on
 its share of the global batch, with its own generator; each phase's
@@ -67,7 +72,6 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from layoutdetr_tpu_torch.models.generator import make_text_feature_fn
 from layoutdetr_tpu_torch.parallel.distributed import average_gradients
@@ -80,6 +84,7 @@ from layoutdetr_tpu_torch.training.loss import (
     g_main_loss,
     g_pl_loss,
 )
+from layoutdetr_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -130,8 +135,10 @@ def _accum_phase(loss_fn: Callable, params: list, batch: Dict[str, torch.Tensor]
     for i in range(grad_accum):
         mb = {k: v[i * mb_size:(i + 1) * mb_size] if isinstance(v, torch.Tensor) else v
               for k, v in batch.items()}
-        total, mb_stats = loss_fn(mb, zs[i], generator)
-        mb_grads = torch.autograd.grad(total, params, allow_unused=True)
+        with span("train_step.forward"):
+            total, mb_stats = loss_fn(mb, zs[i], generator)
+        with span("train_step.backward"):
+            mb_grads = torch.autograd.grad(total, params, allow_unused=True)
         for j, g in enumerate(mb_grads):
             if g is not None:
                 grads[j] = g if grads[j] is None else grads[j] + g
@@ -146,7 +153,8 @@ def _accum_phase(loss_fn: Callable, params: list, batch: Dict[str, torch.Tensor]
 def _apply(opt: torch.optim.Optimizer, params: list, grads: list) -> None:
     """The DP average of ``grads``, sanitized, into ``opt``'s step."""
     average_gradients(grads, params)
-    _sanitize(grads)
+    with span("train_step.sanitize"):
+        _sanitize(grads)
     for p, g in zip(params, grads):
         p.grad = g
     opt.step()
@@ -176,7 +184,7 @@ def make_train_step(weights: LossWeights = LossWeights(), batch_size: int = 16,
         if b % grad_accum:
             raise ValueError(f"batch {b} does not split into {grad_accum} microbatches")
 
-        with record_function("train_step.text"):
+        with span("train_step.text"):
             text_feat = make_text_feature_fn(state.G.text_encoder)(
                 batch["text_ids"], batch["text_mask"], deterministic, generator)
             text_feat_d = text_feat if share_text_encoder else make_text_feature_fn(
@@ -190,30 +198,30 @@ def make_train_step(weights: LossWeights = LossWeights(), batch_size: int = 16,
         def split_z(full):
             return full.chunk(grad_accum) if grad_accum > 1 else (full,)
 
-        with record_function("train_step.Gmain"):
+        with span("train_step.Gmain"):
             z_g = draw_z() if z is None else z[0]
             params_g = _trainable(state.G)
             g_grads, g_stats = _accum_phase(
                 lambda mb, zz, gen: g_main_loss(state.G, state.D, mb, zz, weights, deterministic,
                                                 gen, aug_cfg),
                 params_g, batch, grad_accum, split_z(z_g), generator)
-        with record_function("train_step.G_adam"):
+        with span("train_step.G_adam"):
             _apply(state.opt_g, params_g, g_grads)
 
         # Dmain: a fresh z, the reference's per-phase z
-        with record_function("train_step.Dmain"):
+        with span("train_step.Dmain"):
             z_d = draw_z() if z is None else z[1]
             params_d = _trainable(state.D)
             d_grads, d_stats = _accum_phase(
                 lambda mb, zz, gen: d_main_loss(state.G, state.D, mb, zz, weights, deterministic,
                                                 gen, aug_cfg),
                 params_d, batch, grad_accum, split_z(z_d), generator)
-        with record_function("train_step.D_adam"):
+        with span("train_step.D_adam"):
             _apply(state.opt_d, params_d, d_grads)
 
         # EMA (training_loop.py:320-328), trainable parameters only
         beta = ema_beta(batch_size, ema_kimg, (state.step + 1) * batch_size, ema_rampup)
-        with record_function("train_step.ema"), torch.no_grad():
+        with span("train_step.ema"), torch.no_grad():
             pairs = [(e, p) for e, p in zip(state.G_ema.parameters(), state.G.parameters())
                      if p.requires_grad]
             ema = [e for e, _ in pairs]
@@ -245,7 +253,7 @@ def make_g_reg_step(weights: LossWeights, z_dim: int = 4, max_elements: int = 9,
 
     def step(state: GANTrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator,
              z: Optional[torch.Tensor] = None, pl_noise: Optional[torch.Tensor] = None) -> dict:
-        with record_function("g_reg.pl"):
+        with span("g_reg.pl"):
             loss, pl_mean, stats = g_pl_loss(state.G, batch, weights, state.pl_mean, z, pl_noise,
                                              generator, make_text_feature_fn(state.G.text_encoder))
             _reg_update(state.opt_g, state.G, loss * gain)
@@ -263,7 +271,7 @@ def make_d_reg_step(weights: LossWeights, gain: float = 16.0):
     def step(state: GANTrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None) -> dict:
         del generator
-        with record_function("d_reg.r1"):
+        with span("d_reg.r1"):
             loss, stats = d_r1_loss(state.D, batch, weights, make_text_feature_fn(state.D.text_encoder))
             _reg_update(state.opt_d, state.D, loss * gain)
         return stats

@@ -33,7 +33,15 @@ from layoutdetr_tpu_torch.models.generator import Generator
 from layoutdetr_tpu_torch.serving import api_server
 from layoutdetr_tpu_torch.utils.convert import generator_state_dict_from_jax
 
-from test_torch_common import REPO_ROOT, load_port, random_params, tiny_configs
+from test_torch_common import (
+    GENERATE_SPANS,
+    REPO_ROOT,
+    assert_in_turn,
+    load_port,
+    profiled_ranges,
+    random_params,
+    tiny_configs,
+)
 from test_torch_common import one_torch_thread  # noqa: F401 (module-scoped autouse fixture)
 
 ELEMENTS = [{"text": "Big summer sale", "type": "header"},
@@ -110,6 +118,17 @@ def test_generate_banners_matches_jax(ckpt, jax_api, tmp_path, monkeypatch):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-5)
     for r in got:
         assert os.path.exists(r["image"]) and os.path.exists(r["html"])
+
+
+def test_generate_banners_runs_in_the_entry_spans(ckpt, tmp_path):
+    """Profiled, the server's path shows the serving entry's five spans once
+    each, in turn."""
+    got, ranges = profiled_ranges(
+        lambda: api_server.generate_banners(ckpt, _background(), ELEMENTS, 2,
+                                            output_dir=str(tmp_path), device="cpu"),
+        "generate.")
+    assert len(got) == 2
+    assert_in_turn(ranges, GENERATE_SPANS)
 
 
 def _request(url: str, body=None):

@@ -185,6 +185,33 @@ def tiny_configs(**overrides):
     return jcfg, GeneratorConfig.from_dict(dataclasses.asdict(jcfg))
 
 
+# The serving entries' spans, in the order a call runs them.
+GENERATE_SPANS = ["generate.encode", "generate.upload", "generate.forward", "generate.download",
+                  "generate.postprocess"]
+
+
+def profiled_ranges(fn, prefix: str):
+    """``fn()`` under the CPU profiler: (its result, [(name, start_ns,
+    end_ns)] of the recorded ranges whose names start with ``prefix``, in
+    start order)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    ranges = sorted((ev.start_ns(), ev.start_ns() + ev.duration_ns(), ev.name())
+                    for ev in prof.profiler.kineto_results.events()
+                    if ev.name().startswith(prefix) and ev.activity_type() == "user_annotation")
+    return out, [(name, s, e) for s, e, name in ranges]
+
+
+def assert_in_turn(ranges, names):
+    """``ranges`` (``profiled_ranges``'s) are ``names``, once each, in this
+    order, none overlapping the next."""
+    assert [r[0] for r in ranges] == list(names)
+    for (_, _, end), (_, start, _) in zip(ranges, ranges[1:]):
+        assert end <= start
+
+
 # ---------------------------------------------------------------------------
 # import hygiene
 # ---------------------------------------------------------------------------

@@ -5,6 +5,7 @@ params carried across by generator_state_dict_from_jax. fp32; the bar on
 bbox_fake is 1e-5 max-abs."""
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -29,8 +30,11 @@ from layoutdetr_tpu_torch.models.generator import Generator, make_text_feature_f
 from layoutdetr_tpu_torch.utils.convert import generator_state_dict_from_jax
 
 from test_torch_common import (
+    GENERATE_SPANS,
+    assert_in_turn,
     assert_max_abs,
     load_port,
+    profiled_ranges,
     random_params,
     tiny_configs,
 )
@@ -233,6 +237,30 @@ def test_generate_layouts_matches_jax_flow(tmp_path):
         assert_max_abs(layout.raw, raw, TOL, "served raw bbox")
         assert_max_abs(layout.bbox, bbox, TOL, "served post-processed bbox")
         assert layout.alignment == align
+
+
+def test_generate_layouts_runs_in_five_spans(tmp_path):
+    """Profiled, a call shows its five spans once each, in turn, inside the call."""
+    _, cfg = tiny_configs(vocab_size=30524, bos_token_id=30522, text_len_table=64)
+    torch.manual_seed(0)
+    model = Generator(cfg).eval()
+    rng = np.random.default_rng(2)
+    requests = [LayoutRequest(rng.normal(size=(32, 32, 3)).astype(np.float32), s, lab)
+                for s, lab in zip(STRINGS, LABELS)]
+    tok = LayoutTokenizer(max_length=cfg.max_text_length, vocab_dir=str(tmp_path),
+                          length_clip=cfg.text_len_table)
+    marks = []
+
+    def call():
+        marks.append(time.time_ns())
+        out = generate_layouts(model, requests, seed=3, device="cpu", tokenizer=tok)
+        marks.append(time.time_ns())
+        return out
+
+    layouts, ranges = profiled_ranges(call, "generate.")
+    assert len(layouts) == len(requests)
+    assert_in_turn(ranges, GENERATE_SPANS)
+    assert marks[0] <= ranges[0][1] and ranges[-1][2] <= marks[1] + 1_000_000
 
 
 def test_generate_cli_on_cpu(tmp_path):

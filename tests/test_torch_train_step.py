@@ -46,7 +46,7 @@ from layoutdetr_tpu_torch.utils.convert import (
     generator_state_dict_from_jax,
 )
 
-from test_torch_common import assert_max_abs, random_params, tiny_configs
+from test_torch_common import assert_max_abs, profiled_ranges, random_params, tiny_configs
 from test_torch_common import one_torch_thread  # noqa: F401 (module-scoped autouse fixture)
 
 B, N, T = 2, 9, 16
@@ -293,6 +293,31 @@ def test_dropout_step_is_seeded(case):
     assert a == b
     assert a["Loss/G/loss_Ggen_text_rec"] != c["Loss/G/loss_Ggen_text_rec"]
     assert a["Loss/D/loss_Dreal"] != c["Loss/D/loss_Dreal"]
+
+
+def test_step_spans_nest_in_its_phases(case):
+    """Profiled, a step shows its six phase spans once each, in turn; the
+    loss's forward and backward inside Gmain and Dmain, the sanitizing
+    inside G_adam and D_adam."""
+    _, cfg, batch, pg, pd = case
+    G, D = _port_models(cfg, pg, pd)
+    state = GANTrainState.create(G, D, build_optimizer(G, reg_interval=4),
+                                 build_optimizer(D, reg_interval=16))
+    step = make_train_step(batch_size=B, z_dim=4, max_elements=N, deterministic=True)
+    _, ranges = profiled_ranges(lambda: step(state, _torch(batch), torch.Generator().manual_seed(0)),
+                                "train_step.")
+    phases = ["train_step.text", "train_step.Gmain", "train_step.G_adam", "train_step.Dmain",
+              "train_step.D_adam", "train_step.ema"]
+    outer = [r for r in ranges if r[0] in phases]
+    assert [r[0] for r in outer] == phases
+    inner = {"train_step.Gmain": ["train_step.forward", "train_step.backward"],
+             "train_step.Dmain": ["train_step.forward", "train_step.backward"],
+             "train_step.G_adam": ["train_step.sanitize"],
+             "train_step.D_adam": ["train_step.sanitize"]}
+    for name, start, end in outer:
+        within = [r[0] for r in ranges if r[0] not in phases and start <= r[1] and r[2] <= end]
+        assert within == inner.get(name, []), name
+    assert len(ranges) == len(phases) + 6
 
 
 def test_port_config_reads_the_jax_config():
